@@ -1,0 +1,45 @@
+"""Carry the JAX package's params into the port.
+
+The JAX side hands over its params as a nested dict of numpy arrays with
+its own leaf paths and layer-stacked layout (``np.asarray`` on every
+leaf); this module never imports the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes bf16: reinterpret bits
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)) \
+            .view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device=None):
+    """Nested dict of numpy arrays -> the same nested dict of tensors on
+    ``device`` (default the card), checked against the port's own init
+    for leaf paths and shapes."""
+    from repro_torch.models.transformer import Model
+    dev = resolve_device(device)
+    expect = Model(cfg, torch.device("meta")).init_shapes()
+
+    def conv(node, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(node, dict) or set(node) != set(ref):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"params at {'.'.join(path) or '<root>'}: "
+                                 f"keys {got}, expected {sorted(ref)}")
+            return {k: conv(node[k], ref[k], path + (k,)) for k in ref}
+        t = _to_tensor(node, dev)
+        if tuple(t.shape) != ref:
+            raise ValueError(f"params at {'.'.join(path)}: shape "
+                             f"{tuple(t.shape)}, expected {ref}")
+        return t
+
+    return conv(tree, expect, ())

@@ -1,0 +1,273 @@
+"""Model builder of the PyTorch port: ArchConfig -> Model.
+
+The port of the JAX package's ``models/transformer.py`` as far as serving
+a decoder through the paged engine needs it: the hashed-slot inventory
+and policy resolution (``hash_slots``, ``slot_assignments``,
+``bank_spec_map``), and from ``_build_decoder`` the seeded ``init``,
+``init_paged_cache``, ``decode_paged``, ``prefill_paged`` and
+``logits_head``.  Params are the JAX package's nested dict with the same
+leaf paths and the layer-stacked ``(L, ...)`` layout, so params carried
+across with :func:`repro_torch.interop.params_from_numpy` compute the
+same function.  PyTorch runs eagerly: the layer loop is a Python loop,
+and the page pools are written in place (the JAX package threads them
+through a ``lax.scan`` and the engine donates them).
+
+Not ported yet: training and the dense-cache paths (``train_loss``,
+``prefill``, ``decode_step``; ROADMAP Queue A items 4 and 9),
+``decode_paged_block`` (spec decode, item 8), MoE and the non-decoder
+kinds (item 11).
+"""
+from __future__ import annotations
+
+import functools
+import zlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import policy as POL
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import hashed as H
+from repro_torch.core.device import resolve_device
+from repro_torch.core.hashing import derive_seed
+from repro_torch.nn import attention as ATT
+from repro_torch.nn import ffn as FFN
+from repro_torch.nn import layers as L
+
+
+# ---------------------------------------------------------------------------
+# hashed-slot inventory + policy resolution
+# ---------------------------------------------------------------------------
+
+def _slot_seed(seed_key: str) -> int:
+    # zlib.crc32, not builtin hash(): the latter is salted per process
+    return derive_seed(0xC0FFEE, zlib.crc32(seed_key.encode()) & 0x7FFFFFFF)
+
+
+def _not_ported(cfg: ArchConfig) -> Optional[str]:
+    if cfg.arch_kind != "decoder":
+        return f"arch kind {cfg.arch_kind!r}"
+    if cfg.moe:
+        return "MoE decoders"
+    if cfg.global_every > 0:
+        return "local:global attention patterns"
+    if cfg.num_image_tokens > 0:
+        return "image tokens"
+    if cfg.norm != "rmsnorm" or cfg.activation != "swiglu":
+        return f"{cfg.norm}/{cfg.activation} blocks"
+    if not cfg.tie_embeddings:
+        return "untied LM heads"
+    return None
+
+
+def hash_slots(cfg: ArchConfig) -> Tuple[POL.Slot, ...]:
+    """Every hashable projection slot of a decoder, declaratively: one
+    entry per param-leaf path with its dense virtual shape and hash seed
+    (the JAX package's seed keys, so specs are byte-identical)."""
+    if not cfg.hashed:
+        return ()
+    why = _not_ported(cfg)
+    if why is not None:
+        raise NotImplementedError(
+            f"{why}: not ported yet (ROADMAP Queue A item 11)")
+    d = cfg.d_model
+    hq = cfg.num_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    slots = []
+
+    def add(path, seed_key, vshape, on=True):
+        slots.append(POL.Slot(path=tuple(path), virtual_shape=tuple(vshape),
+                              seed=_slot_seed(seed_key), default_on=on))
+
+    add(("embed", "emb"), "embed", (cfg.padded_vocab, d),
+        on=cfg.hash_embeddings)
+    add(("layers", "attn", "q", "w"), "attn.q", (d, hq))
+    add(("layers", "attn", "k", "w"), "attn.k", (d, hkv))
+    add(("layers", "attn", "v", "w"), "attn.v", (d, hkv))
+    add(("layers", "attn", "o", "w"), "attn.o", (hq, d))
+    add(("layers", "ffn", "in", "w"), "ffn.in", (d, cfg.d_ff))
+    add(("layers", "ffn", "gate", "w"), "ffn.gate", (d, cfg.d_ff))
+    add(("layers", "ffn", "out", "w"), "ffn.out", (cfg.d_ff, d))
+    return tuple(slots)
+
+
+@functools.lru_cache(maxsize=128)
+def slot_assignments(cfg: ArchConfig) -> Dict[tuple, POL.SlotAssignment]:
+    """Policy resolution for a config: param-leaf path -> SlotAssignment."""
+    return POL.resolve(POL.effective(cfg), hash_slots(cfg))
+
+
+def bank_spec_map(cfg: ArchConfig) -> Dict[tuple, H.HashedSpec]:
+    """Map param-leaf paths -> HashedSpec for every hashed bank."""
+    return {path: a.spec for path, a in slot_assignments(cfg).items()
+            if a.spec is not None}
+
+
+def _slot_spec(cfg: ArchConfig, path: tuple) -> Optional[H.HashedSpec]:
+    a = slot_assignments(cfg).get(tuple(path))
+    return a.spec if a is not None else None
+
+
+def _dtype(cfg: ArchConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _tree_index(tree, i: int):
+    """Layer ``i`` of a layer-stacked params tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _tree_stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+class Model:
+    """A decoder served through the paged engine.
+
+    ``init(seed)`` -> params; ``init_paged_cache(num_pages, page_size)``
+    -> {"k", "v"} page pools (nl, P, ps, n_kv, hd);
+    ``decode_paged`` / ``prefill_paged`` run one engine dispatch and write
+    the pools in place; ``logits_head`` is the final norm + tied LM head.
+    """
+
+    def __init__(self, cfg: ArchConfig, device):
+        why = _not_ported(cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"{why}: not ported yet (ROADMAP Queue A item 11)")
+        self.cfg = cfg
+        self.device = device
+        self.dtype = _dtype(cfg)
+        sp = functools.partial(_slot_spec, cfg)
+        base = ("layers", "attn")
+        self.attn_plan = ATT.AttentionPlan(
+            d_model=cfg.d_model, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+            sliding_window=cfg.sliding_window, dtype=self.dtype,
+            hash_q=sp(base + ("q", "w")), hash_k=sp(base + ("k", "w")),
+            hash_v=sp(base + ("v", "w")), hash_o=sp(base + ("o", "w")),
+            hash_path=cfg.hash_path)
+        base = ("layers", "ffn")
+        self.ffn_plan = FFN.FFNPlan(
+            d_model=cfg.d_model, d_ff=cfg.d_ff, dtype=self.dtype, hash_in=sp(base + ("in", "w")),
+            hash_gate=sp(base + ("gate", "w")),
+            hash_out=sp(base + ("out", "w")), hash_path=cfg.hash_path)
+        self.emb_plan = L.EmbeddingPlan(
+            cfg.padded_vocab, cfg.d_model, hashed=sp(("embed", "emb")),
+            dtype=self.dtype, scale_by_sqrt_dim=cfg.scale_embeddings)
+
+    # -- params -------------------------------------------------------------
+    def init(self, seed: int = 0):
+        """Seeded random params: one ``torch.Generator`` on the model's
+        device.  The JAX package's ``jax.random`` init cannot be
+        reproduced; parity tests carry params across instead."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        return self._init_tree(g, self.device)
+
+    def init_shapes(self):
+        """The params tree's leaf shapes, computed on the meta device."""
+        tree = self._init_tree(None, torch.device("meta"))
+
+        def shapes(node):
+            if isinstance(node, dict):
+                return {k: shapes(v) for k, v in node.items()}
+            return tuple(node.shape)
+        return shapes(tree)
+
+    def _init_tree(self, g, dev):
+        d = self.cfg.d_model
+        params = {"embed": L.embedding_init(self.emb_plan, g, dev)}
+        layers = []
+        for _ in range(self.cfg.num_layers):
+            layers.append({
+                "attn": ATT.init(self.attn_plan, g, dev),
+                "ln1": L.rmsnorm_init(d, device=dev),
+                "ln2": L.rmsnorm_init(d, device=dev),
+                "ffn": FFN.init(self.ffn_plan, g, dev),
+            })
+        params["layers"] = _tree_stack(layers)
+        params["final_norm"] = L.rmsnorm_init(d, device=dev)
+        return params
+
+    def init_paged_cache(self, num_pages: int, page_size: int):
+        shape = (self.cfg.num_layers, num_pages, page_size,
+                 self.cfg.num_kv_heads, self.cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+    # -- serving dispatches --------------------------------------------------
+    def _embed(self, params, tokens):
+        return L.embedding_lookup(self.emb_plan, params["embed"], tokens)
+
+    def _ffn(self, lp, x):
+        h = L.rmsnorm_apply(lp["ln2"], x)
+        return x + FFN.apply(self.ffn_plan, lp["ffn"], h)
+
+    def logits_head(self, params, x):
+        """Final norm + tied LM head (fp32 logits over the padded vocab)."""
+        x = L.rmsnorm_apply(params["final_norm"], x)
+        return L.embedding_logits(self.emb_plan, params["embed"], x)
+
+    @torch.no_grad()
+    def decode_paged(self, params, tokens, pages, page_table, lengths,
+                     impl: str = "pallas"):
+        """One continuous-batching decode step through the paged cache.
+
+        tokens (B, 1); pages {"k","v"} (nl, P, ps, n_kv, hd), written in
+        place; page_table (B, MAXP) int32 (unused slots -> trash page 0);
+        lengths (B,) int32 cached-token counts EXCLUDING the current
+        token.  Returns logits (B, 1, padded_vocab) fp32.
+        """
+        x = self._embed(params, tokens)
+        for i in range(self.cfg.num_layers):
+            lp = _tree_index(params["layers"], i)
+            h = L.rmsnorm_apply(lp["ln1"], x)
+            x = x + ATT.apply_paged(
+                self.attn_plan, lp["attn"], h,
+                pages=(pages["k"][i], pages["v"][i]), page_table=page_table,
+                lengths=lengths, impl=impl)
+            x = self._ffn(lp, x)
+        return self.logits_head(params, x)
+
+    @torch.no_grad()
+    def prefill_paged(self, params, tokens, pages, page_table, starts, counts,
+                      write_from, impl: str = "pallas"):
+        """Batched ragged prefill chunks straight into the paged cache.
+
+        tokens (B, S); slot s of row b is the prompt token at position
+        ``starts[b] + s``, real iff ``s < counts[b]``.  Fresh K/V lands in
+        each row's private pages (positions below ``write_from[b]`` are
+        write-protected).  Returns the LAST REAL slot's hidden state
+        (B, 1, d_model): the engine runs ``logits_head`` on a per-row
+        (1, 1, d) slice, keeping the sequential path's M=1 LM head.
+        """
+        x = self._embed(params, tokens)
+        for i in range(self.cfg.num_layers):
+            lp = _tree_index(params["layers"], i)
+            h = L.rmsnorm_apply(lp["ln1"], x)
+            x = x + ATT.apply_paged_prefill(
+                self.attn_plan, lp["attn"], h,
+                pages=(pages["k"][i], pages["v"][i]), page_table=page_table,
+                starts=starts, counts=counts, write_from=write_from,
+                impl=impl)
+            x = self._ffn(lp, x)
+        last = torch.clamp(counts.long() - 1, 0, tokens.shape[1] - 1)
+        idx = last[:, None, None].expand(-1, 1, x.shape[-1])
+        return torch.gather(x, 1, idx)
+
+
+def build(cfg: ArchConfig, device=None) -> Model:
+    """Model for ``cfg`` on ``device`` (default: the card; raises when
+    there is none unless ``device="cpu"`` is passed)."""
+    return Model(cfg, resolve_device(device))

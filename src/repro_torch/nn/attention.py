@@ -1,0 +1,171 @@
+"""Grouped-query attention over a paged KV cache, with RoPE and qk-norm,
+every projection optionally hashed — the PyTorch port of the paged
+serving paths of the JAX package's ``nn/attention.py``.
+
+Shapes: x (B, S, d_model); page pools (P, page_size, n_kv, head_dim)
+per k/v.  GQA runs without repeating K/V; scores and softmax are fp32.
+
+PyTorch runs eagerly, so the pools are updated in place: the JAX
+package returns new pools and the engine donates the old ones
+(``serving/engine.py`` ``donate_argnums``), which XLA turns into the
+same in-place update.  The dense-cache ``apply`` (training, the
+scratch-cache prefill) and the spec-decode ``apply_paged_block`` are
+not ported yet (ROADMAP Queue A items 4 and 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import hashed as H
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.nn import layers as L
+
+IMPLS = ("ref", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    sliding_window: int = 0          # 0 = full attention
+    dtype: Any = torch.bfloat16
+    hash_q: Optional[H.HashedSpec] = None
+    hash_k: Optional[H.HashedSpec] = None
+    hash_v: Optional[H.HashedSpec] = None
+    hash_o: Optional[H.HashedSpec] = None
+    hash_path: str = "pallas"
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def lin(self, name: str) -> L.LinearPlan:
+        i, o, h = {"q": (self.d_model, self.q_dim, self.hash_q),
+                   "k": (self.d_model, self.kv_dim, self.hash_k),
+                   "v": (self.d_model, self.kv_dim, self.hash_v),
+                   "o": (self.q_dim, self.d_model, self.hash_o)}[name]
+        return L.LinearPlan(i, o, hashed=h, dtype=self.dtype,
+                            hash_path=self.hash_path)
+
+
+def init(plan: AttentionPlan, generator, device="cpu"):
+    params = {name: L.linear_init(plan.lin(name), generator, device)
+              for name in ("q", "k", "v", "o")}
+    if plan.qk_norm:
+        params["q_norm"] = L.rmsnorm_init(plan.head_dim, device=device)
+        params["k_norm"] = L.rmsnorm_init(plan.head_dim, device=device)
+    return params
+
+
+def _project(plan: AttentionPlan, params, name: str, x: torch.Tensor,
+             out_heads: int) -> torch.Tensor:
+    y = L.linear_apply(plan.lin(name), params[name], x)
+    return y.reshape(x.shape[0], x.shape[1], out_heads, plan.head_dim)
+
+
+def _qkv(plan: AttentionPlan, params, x, positions):
+    """Projections, qk-norm and RoPE at ``positions`` (B, S)."""
+    q = _project(plan, params, "q", x, plan.num_heads)
+    k = _project(plan, params, "k", x, plan.num_kv_heads)
+    v = _project(plan, params, "v", x, plan.num_kv_heads)
+    if plan.qk_norm:
+        q = L.rmsnorm_apply(params["q_norm"], q)
+        k = L.rmsnorm_apply(params["k_norm"], k)
+    q = L.rope(q, positions, plan.rope_theta)
+    k = L.rope(k, positions, plan.rope_theta)
+    return q, k, v
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
+
+
+def apply_paged(plan: AttentionPlan, params, x: torch.Tensor, *, pages,
+                page_table: torch.Tensor, lengths: torch.Tensor,
+                impl: str = "pallas") -> torch.Tensor:
+    """One decode step (S=1) through a paged KV cache.
+
+    x: (B, 1, d_model); pages: (pk, pv) each (P, ps, Hkv, D), written in
+    place; page_table: (B, MAXP) int32; lengths: (B,) int32 tokens
+    already cached per row EXCLUDING the current one (its k/v lands at
+    page ``table[b, lengths // ps]`` offset ``lengths % ps``).
+
+    impl: "ref" (the kernel's plain gather-then-attend version) or
+    "pallas" (the paged flash-decode kernel; its plain version on the
+    CPU).  Returns out (B, 1, d_model).
+    """
+    _check_impl(impl)
+    b = x.shape[0]
+    lengths = lengths.long()
+    q, k, v = _qkv(plan, params, x, lengths[:, None])
+    pk, pv = pages
+    ps = pk.shape[1]
+    pidx = torch.gather(page_table.long(), 1, (lengths // ps)[:, None])[:, 0]
+    poff = lengths % ps
+    # distinct live rows own distinct pages (allocator invariant); idle
+    # rows all write the trash page, collisions harmless there
+    pk[pidx, poff] = k[:, 0].to(pk.dtype)
+    pv[pidx, poff] = v[:, 0].to(pv.dtype)
+    fn = PA.paged_decode_attention if impl == "pallas" \
+        else PA.paged_attention_ref
+    out = fn(q[:, 0], pk, pv, page_table, (lengths + 1).int(),
+             plan.sliding_window)
+    out = out.reshape(b, 1, plan.q_dim).to(plan.dtype)
+    return L.linear_apply(plan.lin("o"), params["o"], out)
+
+
+def apply_paged_prefill(plan: AttentionPlan, params, x: torch.Tensor, *,
+                        pages, page_table: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor,
+                        write_from: torch.Tensor,
+                        impl: str = "pallas") -> torch.Tensor:
+    """Batched ragged prefill chunk through a paged KV cache.
+
+    x: (B, S, d_model); slot ``s`` of row ``b`` holds the prompt token at
+    position ``starts[b] + s`` and is real iff ``s < counts[b]`` (rows
+    with ``counts == 0`` are inert padding rows).  Real slots at
+    positions >= ``write_from[b]`` write K/V into the row's pages through
+    the table (shared prefix pages below it are never written); every
+    other slot writes the trash page (0), whose contents are never read.
+    Every real slot then attends its causal band over the row's paged
+    prefix.  Returns out (B, S, d_model).
+    """
+    _check_impl(impl)
+    b, s_blk, _ = x.shape
+    starts = starts.long()
+    offs = torch.arange(s_blk, dtype=torch.int64, device=x.device)[None, :]
+    positions = starts[:, None] + offs                 # (B, S)
+    q, k, v = _qkv(plan, params, x, positions)
+    pk, pv = pages
+    ps = pk.shape[1]
+    maxp = page_table.shape[1]
+    wvalid = (offs < counts.long()[:, None]) \
+        & (positions >= write_from.long()[:, None])
+    # clamp the page slot for padding positions that run past the table;
+    # their writes are redirected to the trash page anyway
+    pno = torch.clamp(positions // ps, max=maxp - 1)
+    pidx = torch.where(wvalid, torch.gather(page_table.long(), 1, pno), 0)
+    poff = positions % ps
+    pk[pidx.reshape(-1), poff.reshape(-1)] = \
+        k.reshape(b * s_blk, *k.shape[2:]).to(pk.dtype)
+    pv[pidx.reshape(-1), poff.reshape(-1)] = \
+        v.reshape(b * s_blk, *v.shape[2:]).to(pv.dtype)
+    fn = FP.paged_prefill_attention if impl == "pallas" \
+        else FP.paged_prefill_ref
+    out = fn(q, pk, pv, page_table, starts.int(), counts.int(),
+             plan.sliding_window)
+    out = out.reshape(b, s_blk, plan.q_dim).to(plan.dtype)
+    return L.linear_apply(plan.lin("o"), params["o"], out)

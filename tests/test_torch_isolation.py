@@ -1,0 +1,113 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package.
+
+- In a subprocess with ``sys.modules["jax"] = None`` (so any JAX import
+  fails), import ``repro_torch``, serve two requests on the CPU, and
+  check that nothing of ``repro`` was imported.
+- An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py``: no JAX
+  import and no import of the JAX package.
+- Without a CUDA device, the entry points raise unless asked for the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None            # any JAX import now fails
+import numpy as np
+import repro_torch
+import repro_torch.configs as C
+from repro_torch.models import build
+from repro_torch.serving.engine import Engine, Request
+cfg = C.reduced(C.get("qwen3-1.7b")).hashed_variant(0.125)
+model = build(cfg, device="cpu")
+eng = Engine(model, model.init(0), device="cpu", max_len=32, eos_id=-1)
+for uid in range(2):
+    assert eng.submit(Request(uid=uid, prompt=np.arange(5, dtype=np.int32)
+                              + 2 + uid, max_new_tokens=3))
+done = eng.run()
+assert sorted(len(r.tokens) for r in done) == [3, 3], done
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m == "repro" or m.startswith("repro.") or m == "jax"
+                  or m.startswith("jax.") or m.startswith("jaxlib")))
+print("LEAKED", bad)
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def test_serves_on_cpu_with_jax_blocked_in_a_subprocess():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "2"
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+                bad.append(f"{f.relative_to(ROOT)}: {mod}")
+    assert bad == []
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import repro_torch.configs as C
+    from repro_torch.models import build
+    from repro_torch.serving.engine import Engine
+    from repro_torch.launch import serve
+    cfg = C.reduced(C.get("qwen3-1.7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(cfg)
+    model = build(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model, model.init(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-1.7b", "--reduced"])
+    assert Engine(model, model.init(0), device="cpu").device.type == "cpu"
+
+
+def test_cpu_tensors_never_reach_a_kernel_launch():
+    """On the CPU every wrapper runs its plain version and counts no
+    launch; the build module is never asked for nvcc."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import topk
+    before = K.counts()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 16)).astype(np.float32))
+    topk.topk_mask(x, torch.tensor([3, 0], dtype=torch.int32))
+    assert K.counts() == before
