@@ -6,16 +6,26 @@ Needs one CUDA card and ``nvcc``; imports ``repro_torch`` from ``src/``
 and nothing of JAX or the JAX package.  Phases, each failing the script:
 
 1. the card's name and power limit (``nvidia-smi``) and torch's version;
-2. build every CUDA kernel of the serving path from ``src/`` (one
-   ``nvcc`` per source, all at once);
+2. build every CUDA kernel from ``src/`` (one ``nvcc`` per source, all
+   at once);
 3. hold each kernel against its plain PyTorch version on the card at the
-   full-width qwen3-1.7b-hashed8 shapes, and time kernel, plain version
-   and a PyTorch library yardstick with CUDA events (median of 20, the
-   L2 flushed before each launch);
+   full-width qwen3-1.7b-hashed8 shapes (the backward and block-mode
+   kernels at M = 1024, the rows of one B=4 x S=256 training step; each
+   ``dw`` kernel launched twice and bitwise equal to itself), and time
+   kernel, plain version and a PyTorch library yardstick with CUDA
+   events (median of 20, the L2 flushed before each launch);
 4. serve qwen3-1.7b-hashed8 at full width (28 layers, bf16, seeded
-   weights) through the paged engine: 8 requests, every kernel's launch
-   count > 0 and no plain version run on the card; then one decode step
-   on the kernel path against the plain path.
+   weights) through the paged engine: 8 requests, every serving kernel's
+   launch count > 0 and no plain version run on the card; then one
+   decode step on the kernel path against the plain path;
+5. profile a decode step and a prefill dispatch;
+6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
+   lm_stream batches of B=4 x S=256), element mode and then block mode
+   (128 x 128 tiles): one step's loss and bank gradients on the kernel
+   path against the plain path, then steps on one repeated batch (the
+   loss must fall; every training kernel launched, no plain version run
+   on the card), step time, peak memory and a profile of one step; then
+   serve 4 requests in block mode.
 
 Prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +46,14 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL_BF16 = 1e-2                # max |kernel - plain| / max |plain|, bf16
 TOL_LOGITS = 5e-2              # whole-model logits, 28 bf16 layers
+TOL_DW = 1e-4                  # fp32 dw from bf16 inputs: sum order only
+TOL_LOSS = 1e-2                # training loss, kernel vs plain path (rel)
+TOL_GRAD = 0.15                # bank grads: max |d| / max |plain| ...
+MIN_COS = 0.99                 # ... and cosine similarity, 28 bf16 layers
+                               # forward and back, bf16 scatter in the plain
+M_TRAIN = 1024                 # rows of one B=4 x S=256 training step
+SERVE_KERNELS = ("hashed_matmul", "paged_decode", "paged_prefill",
+                 "topk_mask")
 
 
 def fail(msg: str) -> None:
@@ -93,6 +111,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_prefill import (paged_prefill_attention,
                                                    paged_prefill_ref)
+    from repro_torch.kernels import hashed_matmul as THK
     from repro_torch.kernels.hashed_matmul import hashed_matmul_ref
     from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                      paged_decode_attention)
@@ -105,8 +124,10 @@ def main() -> int:
     from repro_torch.serving.scheduler import SchedulerConfig
     import torch.nn.functional as F
 
+    from repro_torch.core.device import resolve_device
+
     t_start = time.perf_counter()
-    dev = torch.device("cuda")
+    dev = resolve_device("cuda")        # also keeps fp32 products off TF32
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -286,7 +307,104 @@ def main() -> int:
           f"library_ms={lib:.4f} bound_ms={b:.5f} ({by})", flush=True)
     results["topk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                 library_ms=lib, bound_ms=b, bound_by=by)
-    del pk, pv, v_dense, kg, vg, kgp, vgp, timer
+    del pk, pv, v_dense, kg, vg, kgp, vgp
+    torch.cuda.empty_cache()
+
+    # -- 3e. the training kernels: dx, dw and block mode at M = 1024 ----------
+    specs_b = bank_spec_map(block_config(C, "pallas"))
+
+    def check(key, got, ref, tol, fns, nbytes, flops, extra=""):
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        ok = rel <= tol
+        ms, plain, lib = (timer(f) for f in fns)
+        b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        print(f"    {key}: max_abs_err={err:.3e} rel={rel:.2e} (tol {tol})"
+              f"{extra} {'ok' if ok else 'FAIL'}  ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b:.5f}"
+              f" ({by})", flush=True)
+        if not ok:
+            fail(f"{key} disagrees with its plain version")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=b, bound_by=by)
+
+    def bitwise(fn):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        if not same:
+            fail("a dw kernel is not bitwise equal to itself across launches")
+        return first, f" bitwise across two launches={same}"
+
+    m = M_TRAIN
+    for slot in ("q", "out"):
+        path = ("layers", "attn", "q", "w") if slot == "q" \
+            else ("layers", "ffn", "out", "w")
+        spec, spec_b = specs[path], specs_b[path]
+        r, c = spec.rows, spec.cols
+        scale = 1.0 / r ** 0.5
+        x, gy = randn(m, r), randn(m, c)
+        gemm_flops = 2.0 * m * r * c
+        # element dx = g @ V^T
+        w = randn(spec.num_buckets) * scale
+        v_dense = H.materialize(w, spec, dtype=torch.bfloat16)
+        check(f"hashed_matmul_t {slot} M={m}", THK.element_matmul_t(gy, w, spec),
+              THK.hashed_matmul_t_ref(gy, w, spec), TOL_BF16,
+              (lambda: THK.element_matmul_t(gy, w, spec),
+               lambda: THK.hashed_matmul_t_ref(gy, w, spec),
+               lambda: torch.matmul(gy, v_dense.t())),
+              2 * (m * c + spec.num_buckets + m * r), gemm_flops)
+        # element dw (paper Eq. 12); the yardstick scatters with index_add_
+        got, note = bitwise(lambda: THK.element_dw(x, gy, spec))
+        ii = torch.arange(r, device=dev)[:, None]
+        jj = torch.arange(c, device=dev)[None, :]
+        eidx, esgn = H.element_indices(spec, ii, jj)
+        eidx, esgn = eidx.reshape(-1), esgn.reshape(-1).float()
+        check(f"hashed_dw {slot} M={m}", got, THK.hashed_dw_ref(x, gy, spec),
+              TOL_DW,
+              (lambda: THK.element_dw(x, gy, spec),
+               lambda: THK.hashed_dw_ref(x, gy, spec),
+               lambda: torch.zeros(spec.num_buckets, device=dev).index_add_(
+                   0, eidx, torch.matmul(x.t(), gy).float().reshape(-1)
+                   * esgn)),
+              2 * m * (r + c) + 4 * spec.num_buckets, gemm_flops, note)
+        del v_dense, eidx, esgn
+        # block mode, 128 x 128 tiles
+        wb = randn(*spec_b.real_param_shape()) * scale
+        vb = H.materialize(wb, spec_b, dtype=torch.bfloat16)
+        bank_bytes = 2 * wb.numel()
+        check(f"block_matmul {slot} M={m}", THK.block_matmul(x, wb, spec_b),
+              hashed_matmul_ref(x, wb, spec_b), TOL_BF16,
+              (lambda: THK.block_matmul(x, wb, spec_b),
+               lambda: hashed_matmul_ref(x, wb, spec_b),
+               lambda: torch.matmul(x, vb)),
+              2 * m * (r + c) + bank_bytes, gemm_flops)
+        check(f"block_matmul_t {slot} M={m}",
+              THK.block_matmul(gy, wb, spec_b, transpose=True),
+              THK.hashed_matmul_t_ref(gy, wb, spec_b), TOL_BF16,
+              (lambda: THK.block_matmul(gy, wb, spec_b, transpose=True),
+               lambda: THK.hashed_matmul_t_ref(gy, wb, spec_b),
+               lambda: torch.matmul(gy, vb.t())),
+              2 * m * (r + c) + bank_bytes, gemm_flops)
+        got, note = bitwise(lambda: THK.block_dw(x, gy, spec_b))
+        bidx, bsgn = H.block_indices(spec_b, dev)
+        gi, gj = spec_b.tile_grid
+        brow, bcol = spec_b.block_shape
+
+        def block_dw_library():
+            tiles = torch.matmul(x.t(), gy).float().reshape(
+                gi, brow, gj, bcol).permute(0, 2, 1, 3) \
+                * bsgn[..., None, None].float()
+            return torch.zeros(spec_b.real_param_shape(), device=dev) \
+                .index_add_(0, bidx.reshape(-1),
+                            tiles.reshape(-1, brow, bcol))
+        check(f"block_dw {slot} M={m}", got,
+              THK.hashed_dw_ref(x, gy, spec_b), TOL_DW,
+              (lambda: THK.block_dw(x, gy, spec_b),
+               lambda: THK.hashed_dw_ref(x, gy, spec_b), block_dw_library),
+              2 * m * (r + c) + 2 * bank_bytes, gemm_flops, note)
+        del vb
+    del timer
     torch.cuda.empty_cache()
 
     # -- 4. serve full-width qwen3-1.7b-hashed8 -------------------------------
@@ -344,11 +462,7 @@ def main() -> int:
         fail("not every request finished with 16 tokens")
     if eng.last_leak_error:
         fail(f"page leak: {eng.last_leak_error}")
-    for name, c in counts_.items():
-        if c["launches"] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-        if c["plain_cuda_calls"] != 0:
-            fail(f"plain version of {name} ran on the card on the main path")
+    check_counts(counts_, SERVE_KERNELS, "serving")
     print(f"    stats: {json.dumps(stats)}", flush=True)
 
     # one decode step on the kernel path against the plain path
@@ -414,25 +528,88 @@ def main() -> int:
             print(f"      {ms_:9.3f} ms {n:5d}x  {kname}")
         torch.cuda.synchronize()
 
+    # -- 6. training at full width, element mode then block mode -------------
+    from repro_torch.data import lm_stream
+    tb = next(lm_stream.batches(seed=17, batch=4, seq_len=256,
+                                vocab=cfg.vocab_size))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tb.items()}
+    del model, plain_model, params, pages, pages_b, eng
+    torch.cuda.empty_cache()
+    path_counts = {"serve": counts_}
+    cfg_e = C.get("qwen3-1.7b-hashed8")
+    path_counts["train element"], _ = train_phase(
+        "element", cfg_e, cfg_e.with_(hash_path="materialize"), batch, 8,
+        ("hashed_matmul", "hashed_matmul_t", "hashed_dw"))
+    torch.cuda.empty_cache()
+    cfg_b = block_config(C, "pallas")
+    path_counts["train block"], state = train_phase(
+        "block", cfg_b, block_config(C, "materialize"), batch, 4,
+        ("block_matmul", "block_dw"))
+
+    # block mode on the serving path (the block forward kernel at M <= 8)
+    model_b = build(cfg_b, device="cuda")
+    eng = Engine(model_b, state["params"], device="cuda", max_concurrency=4,
+                 max_len=128, eos_id=-1, page_size=16, prefill_chunk=64,
+                 debug_leak_check=True)
+    reqs = [Request(uid=u, prompt=rng.integers(2, V, size=n).astype(np.int32),
+                    sampling=SamplingParams(max_tokens=8))
+            for u, n in enumerate((40, 7, 90, 23))]
+    for r in reqs:
+        if not eng.submit(r):
+            fail(f"block-mode request {r.uid} refused")
+    K.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_counts["serve block"] = K.counts()
+    stats = eng.stats()
+    eng.shutdown()
+    print(f"[6] block-mode serving: {stats['done']}/{len(reqs)} done, "
+          f"{sum(len(r.tokens) for r in reqs)} tokens in {wall:.2f}s; "
+          f"launch counts {json.dumps(path_counts['serve block'])}",
+          flush=True)
+    if stats["done"] != len(reqs) or any(len(r.tokens) != 8 for r in reqs):
+        fail("block-mode serving: not every request finished with 8 tokens")
+    if eng.last_leak_error:
+        fail(f"block-mode serving: page leak: {eng.last_leak_error}")
+    check_counts(path_counts["serve block"],
+                 ("block_matmul", "paged_decode", "paged_prefill"),
+                 "block-mode serving")
+
     # -- result line -----------------------------------------------------------
-    main_cases = {"hashed_matmul": "hashed_matmul out M=8",
-                  "paged_decode": "paged_decode",
-                  "paged_prefill": "paged_prefill",
-                  "topk_mask": "topk_mask"}
-    replaces = {"hashed_matmul": "src/repro/kernels/hashed_matmul.py:81",
-                "paged_decode": "src/repro/kernels/paged_attention.py:49",
-                "paged_prefill": "src/repro/kernels/flash_prefill.py:54",
-                "topk_mask": "src/repro/kernels/topk.py:70"}
+    # kernel -> (the case timed in phase 3, the path whose launches count,
+    #            the TPU kernel it replaces)
+    tpu = "src/repro/kernels/"
+    rows = {
+        "hashed_matmul": ("hashed_matmul out M=8", "serve",
+                          tpu + "hashed_matmul.py:81"),
+        "hashed_matmul_t": (f"hashed_matmul_t out M={M_TRAIN}",
+                            "train element", tpu + "hashed_matmul.py:138"),
+        "hashed_dw": (f"hashed_dw out M={M_TRAIN}", "train element",
+                      tpu + "hashed_matmul.py:160"),
+        "block_matmul": (f"block_matmul out M={M_TRAIN}", "train block",
+                         tpu + "hashed_matmul.py:237"),
+        "block_dw": (f"block_dw out M={M_TRAIN}", "train block",
+                     tpu + "hashed_matmul.py:323"),
+        "paged_decode": ("paged_decode", "serve",
+                         tpu + "paged_attention.py:49"),
+        "paged_prefill": ("paged_prefill", "serve",
+                          tpu + "flash_prefill.py:54"),
+        "topk_mask": ("topk_mask", "serve", tpu + "topk.py:70"),
+    }
     out = []
     for name, (_, _, src) in K.KERNELS.items():
-        r = results[main_cases[name]]
+        case, path, replaces = rows[name]
+        r = results[case]
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces[name],
-                    "launches": counts_[name]["launches"],
+                    "replaces": replaces,
+                    "launches": path_counts[path][name]["launches"],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "shape": main_cases[name]})
+                    "shape": case, "path": path})
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"kernels": out}))
@@ -442,9 +619,138 @@ def main() -> int:
     return 0
 
 
+def block_config(C, path: str):
+    """qwen3-1.7b hashed at 1/8 by a block-mode policy (128 x 128 tiles)
+    whose projections take ``path``."""
+    from repro_torch import policy
+    return C.get("qwen3-1.7b").policy_variant(policy.CompressionPolicy(
+        mode="block", block_shape=(128, 128), path=path))
+
+
+def check_counts(counts, kernels, what: str) -> None:
+    """Every kernel of a path launched, no plain version run on the card."""
+    for name in kernels:
+        if counts[name]["launches"] <= 0:
+            fail(f"kernel {name} was not launched on the {what} path")
+    for name, c in counts.items():
+        if c["plain_cuda_calls"] != 0:
+            fail(f"plain version of {name} ran on the card on the {what} "
+                 f"path")
+
+
+def loss_and_grads(model, params, batch):
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), tree_unflatten(params, grads)
+
+
+def train_phase(label, cfg, plain_cfg, batch, n_steps, kernels):
+    """Phase 6 for one mode: (a) one step's loss and bank gradients, kernel
+    path against plain path; (b) ``n_steps`` AdamW steps at a constant lr
+    on the repeated batch, the loss must fall; (c) the counts of (b);
+    (d) step time, peak memory, a profile of one step.  Returns (the
+    counts of (b), the final train state)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import build
+    from repro_torch.models.transformer import bank_spec_map
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    print(f"[6] training {cfg.name} ({label} mode): {cfg.num_layers} layers "
+          f"d={cfg.d_model} {cfg.dtype} remat={cfg.remat}, B=4 S=256",
+          flush=True)
+    model = build(cfg, device="cuda")
+    opt = opt_lib.adamw(opt_lib.constant_lr(1e-3))
+    train_step = step_lib.make_train_step(model, opt, clip_norm=1.0)
+    state = step_lib.init_state(model, opt, seed=0)
+
+    # (a) kernel path against plain path, same params, same batch
+    t0 = time.perf_counter()
+    loss_k, grads_k = loss_and_grads(model, state["params"], batch)
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_p, grads_p = loss_and_grads(build(plain_cfg, device="cuda"),
+                                     state["params"], batch)
+    t_p = time.perf_counter() - t0
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"    (a) loss kernel path {loss_k:.5f} plain path {loss_p:.5f}: "
+          f"rel {rel_loss:.2e} (tol {TOL_LOSS}); first calls {t_k:.1f}s / "
+          f"{t_p:.1f}s (kernel builds, index maps)", flush=True)
+    ok = rel_loss <= TOL_LOSS
+    for path in sorted(bank_spec_map(cfg)):
+        gk, gp = grads_k, grads_p
+        for key in path:
+            gk, gp = gk[key], gp[key]
+        err, rel = rel_err(gk, gp)
+        cos = torch.nn.functional.cosine_similarity(
+            gk.float().reshape(1, -1), gp.float().reshape(1, -1)).item()
+        good = rel <= TOL_GRAD and cos >= MIN_COS
+        ok = ok and good
+        print(f"        grad {'.'.join(path)}: max_abs_err={err:.3e} "
+              f"rel={rel:.2e} (tol {TOL_GRAD}) cos={cos:.5f} (min "
+              f"{MIN_COS}) {'ok' if good else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}-mode training step: kernel path disagrees with the "
+             f"plain path")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (b) + (c) steps on the repeated batch, counted
+    K.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n_steps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, metrics = train_step(state, batch)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(float(metrics["loss"]))
+    counts = K.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = float(np.median(times[1:]))
+    print(f"    (b) losses over {n_steps} steps on one batch (AdamW lr 1e-3):"
+          f" {' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    print(f"    (c) launch counts over the {n_steps} steps: "
+          f"{json.dumps(counts)}", flush=True)
+    from repro_torch.kernels import hashed_matmul as THK
+    maps = {spec: THK.element_segments(spec, "cuda") if label == "element"
+            else THK.block_tables(spec, "cuda")
+            for spec in bank_spec_map(cfg).values()}
+    map_mib = sum(t.numel() * t.element_size() for ts in maps.values()
+                  for t in ts) / 2 ** 20
+    print(f"    (d) step {step_ms:.1f} ms (CUDA events, median of steps 2-"
+          f"{n_steps}), peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated); the {len(maps)} cached {label}-mode "
+          f"index maps hold {map_mib:.1f} MiB", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"{label}-mode training: the loss did not fall")
+    check_counts(counts, kernels, f"{label}-mode training")
+    if label == "block" and counts["block_matmul"]["transposed"] <= 0:
+        fail("block-mode training never ran the transposed block GEMM")
+    busy, top = _profile(lambda: train_step(state, batch))
+    if busy is None:
+        print("    profiler: device time not measured (no CUDA events in "
+              "the trace)")
+    else:
+        print(f"    profiler, one step: device busy {busy:.3f} ms of "
+              f"{step_ms:.1f} ms (idle {1 - busy / step_ms:.0%}); by kernel "
+              f"(self device ms, launches):")
+        for kname, ms_, n in top:
+            print(f"      {ms_:9.3f} ms {n:5d}x  {kname}")
+    return counts, state
+
+
 def _profile(fn):
     """Device busy time of one call of ``fn`` and its top kernels, from
-    ``torch.profiler``; (None, []) when the trace holds no device time."""
+    ``torch.profiler``; (None, []) when the trace holds no device time.
+    Only the device-side rows (kernels, copies) are summed: an operator's
+    CPU-side row repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -453,9 +759,9 @@ def _profile(fn):
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
         if dev_us > 0:
             rows.append((e.key[:70], dev_us / 1e3, e.count))
     if not rows:

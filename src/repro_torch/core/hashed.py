@@ -268,13 +268,28 @@ def materialize_rows(w: torch.Tensor, spec: HashedSpec, row_ids,
 def matmul_scan(x: torch.Tensor, w: torch.Tensor, spec: HashedSpec,
                 panel_cols: int = 0, dtype=None):
     """x @ V with one column panel of V live at a time (the counterpart
-    of the JAX package's ``lax.scan`` path).  Element mode only."""
+    of the JAX package's ``lax.scan`` path).  Element mode walks panels of
+    ``panel_cols`` columns; block mode walks one tile column per step."""
     spec.validate()
-    if spec.mode != "element":
-        raise NotImplementedError(
-            "block-mode panel loop: ROADMAP Queue B item 7 (block mode)")
     dtype = dtype or x.dtype
     cols = spec.cols
+    if spec.mode == "block":
+        bm, bn = spec.block_shape
+        gi, gj = spec.tile_grid
+        idx, sgn = block_indices(spec, x.device)            # (gi, gj)
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        rpad = gi * bm - spec.rows
+        if rpad:
+            # ragged tile grid: zero-pad the contraction dim (zero columns
+            # of x meet the padded virtual rows)
+            x2 = torch.nn.functional.pad(x2, (0, rpad))
+        outs = []
+        for tj in range(gj):
+            tiles = w[idx[:, tj]] * sgn[:, tj, None, None].to(w.dtype)
+            outs.append(x2 @ tiles.reshape(gi * bm, bn).to(dtype))
+        y = torch.cat(outs, dim=-1)[:, :cols]
+        return y.reshape(*lead, cols)
     if panel_cols <= 0:
         panel_cols = spec.panel_cols if spec.panel_cols > 0 \
             else min(cols, 1024)

@@ -1,8 +1,9 @@
-"""Carry the JAX package's params into the port.
+"""Carry params between the JAX package and the port.
 
 The JAX side hands over its params as a nested dict of numpy arrays with
 its own leaf paths and layer-stacked layout (``np.asarray`` on every
-leaf); this module never imports the JAX package.
+leaf), and takes the port's back the same way; this module never
+imports the JAX package.
 """
 from __future__ import annotations
 
@@ -43,3 +44,18 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None):
         return t
 
     return conv(tree, expect, ())
+
+
+def params_to_numpy(tree):
+    """The reverse of :func:`params_from_numpy`: nested dict of tensors ->
+    the same nested dict of numpy arrays on the host, with the JAX
+    package's leaf paths; bf16 leaves come back as ``ml_dtypes.bfloat16``
+    (the numpy dtype JAX uses), bit for bit."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(np.uint16) \
+            .view(ml_dtypes.bfloat16)
+    return t.numpy().copy()

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the PyTorch port, one per Pallas kernel on
-the serving path, each with its plain PyTorch version beside it.
+"""Hand-written CUDA kernels of the PyTorch port, one per Pallas kernel of
+the JAX package, each with its plain PyTorch version beside it.
 
 Every wrapper counts its kernel launches (``<wrapper>.launches``) and
 every plain version counts the calls it was given CUDA tensors
@@ -10,33 +10,52 @@ launch (``_build``).
 """
 from repro_torch.kernels.flash_prefill import (paged_prefill_attention,
                                                paged_prefill_ref)
-from repro_torch.kernels.hashed_matmul import element_matmul, hashed_matmul_ref
+from repro_torch.kernels.hashed_matmul import (block_dw, block_matmul,
+                                               element_dw, element_matmul,
+                                               element_matmul_t,
+                                               hashed_dw_ref,
+                                               hashed_matmul_ref,
+                                               hashed_matmul_t_ref)
 from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                  paged_decode_attention)
 from repro_torch.kernels.topk import topk_mask, topk_mask_ref
 
-# kernel name -> (wrapper, plain version, CUDA source)
+_CSRC = "src/repro_torch/kernels/csrc/"
+
+# kernel name -> (wrapper, its plain versions, CUDA source); one entry per
+# Pallas kernel of the JAX package (block_matmul runs both orientations,
+# as the JAX block_matmul does)
 KERNELS = {
-    "hashed_matmul": (element_matmul, hashed_matmul_ref,
-                      "src/repro_torch/kernels/csrc/hashed_matmul.cu"),
-    "paged_decode": (paged_decode_attention, paged_attention_ref,
-                     "src/repro_torch/kernels/csrc/paged_attention.cu"),
-    "paged_prefill": (paged_prefill_attention, paged_prefill_ref,
-                      "src/repro_torch/kernels/csrc/flash_prefill.cu"),
-    "topk_mask": (topk_mask, topk_mask_ref,
-                  "src/repro_torch/kernels/csrc/topk.cu"),
+    "hashed_matmul": (element_matmul, (hashed_matmul_ref,),
+                      _CSRC + "hashed_matmul.cu"),
+    "hashed_matmul_t": (element_matmul_t, (hashed_matmul_t_ref,),
+                        _CSRC + "hashed_matmul.cu"),
+    "hashed_dw": (element_dw, (hashed_dw_ref,), _CSRC + "hashed_dw.cu"),
+    "block_matmul": (block_matmul, (hashed_matmul_ref, hashed_matmul_t_ref),
+                     _CSRC + "hashed_block.cu"),
+    "block_dw": (block_dw, (hashed_dw_ref,), _CSRC + "hashed_block.cu"),
+    "paged_decode": (paged_decode_attention, (paged_attention_ref,),
+                     _CSRC + "paged_attention.cu"),
+    "paged_prefill": (paged_prefill_attention, (paged_prefill_ref,),
+                      _CSRC + "flash_prefill.cu"),
+    "topk_mask": (topk_mask, (topk_mask_ref,), _CSRC + "topk.cu"),
 }
 
 
 def reset_counts() -> None:
-    for wrapper, plain, _ in KERNELS.values():
+    for wrapper, plains, _ in KERNELS.values():
         wrapper.launches = 0
-        plain.cuda_calls = 0
+        for plain in plains:
+            plain.cuda_calls = 0
+    block_matmul.transposed = 0
 
 
 def counts() -> dict:
-    """{name: {"launches": kernel launches, "plain_cuda_calls": plain
-    version calls on CUDA tensors}}."""
-    return {name: {"launches": wrapper.launches,
-                   "plain_cuda_calls": plain.cuda_calls}
-            for name, (wrapper, plain, _) in KERNELS.items()}
+    """{name: {"launches": kernel launches, "plain_cuda_calls": calls of
+    its plain versions on CUDA tensors}}; ``block_matmul`` also reports
+    how many of its launches were transposed."""
+    out = {name: {"launches": wrapper.launches,
+                  "plain_cuda_calls": sum(p.cuda_calls for p in plains)}
+           for name, (wrapper, plains, _) in KERNELS.items()}
+    out["block_matmul"]["transposed"] = block_matmul.transposed
+    return out

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NAMES = ("hashed_matmul", "paged_attention", "flash_prefill", "topk")
+NAMES = ("hashed_matmul", "hashed_dw", "hashed_block", "paged_attention",
+         "flash_prefill", "topk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]

@@ -1,0 +1,185 @@
+// Block-mode hashed GEMM and bank gradient.  Virtual tile (ti, tj) of V
+// (block_shape brow x bcol) is sigma(ti, tj) * bank[idx(ti, tj)]; the
+// (gi, gj) tables idx and sigma are row-major, linear index ti * gj + tj,
+// in both orientations.
+//
+// block_matmul replaces the JAX package's kernels/hashed_matmul.py
+// _block_fwd_kernel (block_matmul, transpose=False and True): y = x @ V
+// or dx = g @ V^T.  The TPU kernel DMAs the chosen bank tile into VMEM
+// through a scalar-prefetched index map.  Here the shared decompress-GEMM
+// body (tile_gemm.cuh) stages each 32 x 64 piece of V or V^T into shared
+// memory: a bank tile is dense and contiguous, so the copy is coalesced
+// along the bank tile's rows (threads step along the bank's column index
+// in both orientations; the transpose writes shared memory transposed,
+// padded against bank conflicts).  What bounds it at full width is the
+// fp32 FMA loop on the CUDA cores: the bank reads are few and dense.
+//
+// block_dw replaces _block_dw_kernel (block_dw): dbank[b] = sum over the
+// virtual tiles t with idx(t) = b of sigma(t) * (x^T g)[tile t].  The
+// TPU walks virtual tiles sorted by bank index (a stable argsort) and
+// revisits the output tile with store-then-add.  Here one block owns a
+// 64 x 64 piece of one bank tile, walks that bank tile's virtual tiles
+// in the same sorted order, sums sigma * x^T g over all M rows in
+// registers and writes once: deterministic, no atomics, and a bank tile
+// no virtual tile maps to gets zeros.  Bound: 2 M R C flops on the fp32
+// CUDA cores.
+#include "tile_gemm.cuh"
+
+namespace {
+
+using rt::TG_BK;
+using rt::TG_BN;
+using rt::TG_NT;
+
+template <typename T, bool TRANS>
+struct BlockTile {
+  const T* bank;
+  const int* idx;
+  const int* sgn;
+  int brow, bcol, gj;
+
+  // Each element of the staged piece splits into a contribution of its
+  // K index (row kk) and of its output column: linear tile index
+  // kt + ct, offset inside the bank tile ko + co.
+  struct Shared {
+    int kt[TG_BK];
+    int ko[TG_BK];
+    int ct[TG_BN];
+    int co[TG_BN];
+  };
+
+  __device__ void init_cols(Shared& s, int n0, int tid) const {
+    if (tid >= TG_BN) return;
+    const int n = n0 + tid;
+    if (!TRANS) {            // n is the virtual column j
+      s.ct[tid] = n / bcol;
+      s.co[tid] = n % bcol;
+    } else {                 // n is the virtual row i
+      s.ct[tid] = (n / brow) * gj;
+      s.co[tid] = (n % brow) * bcol;
+    }
+  }
+
+  __device__ void init_rows(Shared& s, int k0, int tid) const {
+    if (tid >= TG_BK) return;
+    const int k = k0 + tid;
+    if (!TRANS) {            // k is the virtual row i
+      s.kt[tid] = (k / brow) * gj;
+      s.ko[tid] = (k % brow) * bcol;
+    } else {                 // k is the virtual column j
+      s.kt[tid] = k / bcol;
+      s.ko[tid] = k % bcol;
+    }
+  }
+
+  __device__ void fill(const Shared& s, float (*vs)[TG_BN + 1], int k0,
+                       int kend, int n0, int N, int tid) const {
+    const long long tile_elems = (long long)brow * bcol;
+    for (int e = tid; e < TG_BK * TG_BN; e += TG_NT) {
+      // consecutive threads step along the bank tile's column index j
+      const int kk = TRANS ? e % TG_BK : e / TG_BN;
+      const int c = TRANS ? e / TG_BK : e % TG_BN;
+      float v = 0.f;
+      if (k0 + kk < kend && n0 + c < N) {
+        const int t = s.kt[kk] + s.ct[c];
+        v = rt::to_f(bank[(long long)idx[t] * tile_elems + s.ko[kk] + s.co[c]]);
+        if (sgn[t] < 0) v = -v;
+      }
+      vs[kk][c] = v;
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(rt::TG_NT)
+block_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                const int* __restrict__ order, const int* __restrict__ offsets,
+                const int* __restrict__ sgn, float* __restrict__ dbank, int M,
+                int R, int C, int brow, int bcol, int gj) {
+  __shared__ float xs[rt::XTG_BM][rt::XTG_T];
+  __shared__ float gs[rt::XTG_BM][rt::XTG_T];
+  const int b = blockIdx.z;
+  const int pr0 = blockIdx.y * rt::XTG_T, pc0 = blockIdx.x * rt::XTG_T;
+  const int rlim = min(rt::XTG_T, brow - pr0), clim = min(rt::XTG_T, bcol - pc0);
+  float acc[4][4] = {};
+  for (int p = offsets[b]; p < offsets[b + 1]; ++p) {
+    const int t = order[p];
+    const int ti = t / gj, tj = t % gj;
+    rt::xtg_accumulate<T>(acc, x, g, M, R, C, ti * brow + pr0, rlim,
+                          tj * bcol + pc0, clim, sgn[t] < 0 ? -1.f : 1.f,
+                          xs, gs);
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* out = dbank + (long long)b * brow * bcol;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + 16 * a;
+    if (r >= rlim) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cc = tx + 16 * c;
+      if (cc < clim) out[(long long)(pr0 + r) * bcol + pc0 + cc] = acc[a][c];
+    }
+  }
+}
+
+template <typename T>
+void run_matmul(const void* x, const void* bank, const int* idx,
+                const int* sgn, void* y, float* ws, int M, int K, int N,
+                int brow, int bcol, int gj, int splits, int transpose,
+                cudaStream_t s) {
+  if (transpose) {
+    BlockTile<T, true> tile{(const T*)bank, idx, sgn, brow, bcol, gj};
+    rt::launch_gemm<T>(x, y, ws, M, K, N, splits, tile, s);
+  } else {
+    BlockTile<T, false> tile{(const T*)bank, idx, sgn, brow, bcol, gj};
+    rt::launch_gemm<T>(x, y, ws, M, K, N, splits, tile, s);
+  }
+}
+
+}  // namespace
+
+// Forward: x (M, K=R) -> y (M, N=C); transpose: g (M, K=C) -> dx (M, N=R).
+// bank (tiles, brow, bcol); idx, sgn int32 (gi * gj); dtype 0 fp32 / 1
+// bf16; ws fp32 splits * M * N when splits > 1.  R = gi * brow and
+// C = gj * bcol exactly (the wrapper refuses ragged tile grids).
+extern "C" int hashed_block_matmul(const void* x, const void* bank,
+                                   const void* idx, const void* sgn, void* y,
+                                   void* ws, int M, int K, int N, int brow,
+                                   int bcol, int gj, int dtype, int splits,
+                                   int transpose, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    run_matmul<__nv_bfloat16>(x, bank, (const int*)idx, (const int*)sgn, y,
+                              (float*)ws, M, K, N, brow, bcol, gj, splits,
+                              transpose, s);
+  else
+    run_matmul<float>(x, bank, (const int*)idx, (const int*)sgn, y,
+                      (float*)ws, M, K, N, brow, bcol, gj, splits, transpose,
+                      s);
+  return (int)cudaGetLastError();
+}
+
+// x (M, R), g (M, C) of dtype; order int32 (gi * gj) linear virtual tile
+// indices stably sorted by bank tile; offsets int32 (bank_tiles + 1);
+// sgn int32 (gi * gj); dbank fp32 (bank_tiles, brow, bcol).
+extern "C" int hashed_block_dw(const void* x, const void* g,
+                               const void* order, const void* offsets,
+                               const void* sgn, void* dbank, int M, int R,
+                               int C, int brow, int bcol, int gj,
+                               int bank_tiles, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((bcol + rt::XTG_T - 1) / rt::XTG_T,
+            (brow + rt::XTG_T - 1) / rt::XTG_T, bank_tiles);
+  if (dtype == 1)
+    block_dw_kernel<__nv_bfloat16><<<grid, rt::TG_NT, 0, s>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const int*)order,
+        (const int*)offsets, (const int*)sgn, (float*)dbank, M, R, C, brow,
+        bcol, gj);
+  else
+    block_dw_kernel<float><<<grid, rt::TG_NT, 0, s>>>(
+        (const float*)x, (const float*)g, (const int*)order,
+        (const int*)offsets, (const int*)sgn, (float*)dbank, M, R, C, brow,
+        bcol, gj);
+  return (int)cudaGetLastError();
+}

@@ -1,9 +1,10 @@
 """Model builder of the PyTorch port: ArchConfig -> Model.
 
-The port of the JAX package's ``models/transformer.py`` as far as serving
-a decoder through the paged engine needs it: the hashed-slot inventory
-and policy resolution (``hash_slots``, ``slot_assignments``,
-``bank_spec_map``), and from ``_build_decoder`` the seeded ``init``,
+The port of the JAX package's ``models/transformer.py`` as far as
+training a decoder and serving it through the paged engine need it: the
+hashed-slot inventory and policy resolution (``hash_slots``,
+``slot_assignments``, ``bank_spec_map``), ``softmax_xent``, and from
+``_build_decoder`` the seeded ``init``, ``train_loss``,
 ``init_paged_cache``, ``decode_paged``, ``prefill_paged`` and
 ``logits_head``.  Params are the JAX package's nested dict with the same
 leaf paths and the layer-stacked ``(L, ...)`` layout, so params carried
@@ -12,10 +13,9 @@ same function.  PyTorch runs eagerly: the layer loop is a Python loop,
 and the page pools are written in place (the JAX package threads them
 through a ``lax.scan`` and the engine donates them).
 
-Not ported yet: training and the dense-cache paths (``train_loss``,
-``prefill``, ``decode_step``; ROADMAP Queue A items 4 and 9),
-``decode_paged_block`` (spec decode, item 8), MoE and the non-decoder
-kinds (item 11).
+Not ported yet: the dense-cache paths (``prefill``, ``decode_step``;
+ROADMAP Queue A item 4), ``decode_paged_block`` (spec decode, item 8),
+MoE and the non-decoder kinds (item 11).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import zlib
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import policy as POL
 from repro_torch.configs.base import ArchConfig
@@ -119,6 +120,16 @@ def _tree_index(tree, i: int):
     return tree[i]
 
 
+def _tree_unbind(tree, n: int):
+    """The ``n`` layers of a layer-stacked params tree, one ``unbind`` per
+    leaf: its backward stacks the layer grads into one buffer per leaf
+    (indexing each layer out would add one full-size buffer per layer)."""
+    if isinstance(tree, dict):
+        per_key = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return torch.unbind(tree, dim=0)
+
+
 def _tree_stack(trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -127,13 +138,40 @@ def _tree_stack(trees):
 
 
 # ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 vocab_size: int):
+    """logits (B, S, Vp) fp32; targets (B, S) int, -1 = masked.  The
+    padded vocab slots (Vp > vocab_size) are masked out of the softmax."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vp > vocab_size:
+        keep = torch.arange(vp, device=logits.device) < vocab_size
+        logits = torch.where(keep, logits, torch.tensor(
+            -1e30, dtype=torch.float32, device=logits.device))
+    mask = targets >= 0
+    tgt = torch.where(mask, targets, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = nll.sum() / denom
+    acc = ((logits.argmax(-1) == tgt) & mask).sum() / denom
+    return loss, {"nll": loss, "accuracy": acc, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
 # decoder
 # ---------------------------------------------------------------------------
 
 class Model:
-    """A decoder served through the paged engine.
+    """A decoder, trained with ``train_loss`` and served through the
+    paged engine.
 
-    ``init(seed)`` -> params; ``init_paged_cache(num_pages, page_size)``
+    ``init(seed)`` -> params; ``train_loss(params, batch)`` -> (loss,
+    metrics); ``init_paged_cache(num_pages, page_size)``
     -> {"k", "v"} page pools (nl, P, ps, n_kv, hd);
     ``decode_paged`` / ``prefill_paged`` run one engine dispatch and write
     the pools in place; ``logits_head`` is the final norm + tied LM head.
@@ -213,6 +251,30 @@ class Model:
     def _ffn(self, lp, x):
         h = L.rmsnorm_apply(lp["ln2"], x)
         return x + FFN.apply(self.ffn_plan, lp["ffn"], h)
+
+    def _layer(self, lp, x, positions):
+        h = L.rmsnorm_apply(lp["ln1"], x)
+        x = x + ATT.apply(self.attn_plan, lp["attn"], h, positions=positions)
+        return self._ffn(lp, x)
+
+    def train_loss(self, params, batch):
+        """Next-token loss of ``batch`` {"tokens", "targets"} (B, S) with
+        the whole-sequence causal attention.  With ``cfg.remat`` each layer
+        is recomputed in the backward pass (activation checkpointing)
+        instead of keeping its intermediates.  Returns (loss, metrics)."""
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in _tree_unbind(params["layers"], self.cfg.num_layers):
+            if self.cfg.remat:
+                x = checkpoint(self._layer, lp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._layer(lp, x, positions)
+        logits = self.logits_head(params, x)
+        loss, metrics = softmax_xent(logits, batch["targets"],
+                                     self.cfg.vocab_size)
+        metrics["aux_loss"] = torch.zeros((), device=loss.device)
+        return loss, metrics
 
     def logits_head(self, params, x):
         """Final norm + tied LM head (fp32 logits over the padded vocab)."""

@@ -1,6 +1,7 @@
-"""Grouped-query attention over a paged KV cache, with RoPE and qk-norm,
-every projection optionally hashed — the PyTorch port of the paged
-serving paths of the JAX package's ``nn/attention.py``.
+"""Grouped-query attention with RoPE and qk-norm, every projection
+optionally hashed — the PyTorch port of the JAX package's
+``nn/attention.py``: the training branch (``apply`` without a cache,
+``attend``, ``_attend_unchunked``) and the paged serving paths.
 
 Shapes: x (B, S, d_model); page pools (P, page_size, n_kv, head_dim)
 per k/v.  GQA runs without repeating K/V; scores and softmax are fp32.
@@ -8,13 +9,14 @@ per k/v.  GQA runs without repeating K/V; scores and softmax are fp32.
 PyTorch runs eagerly, so the pools are updated in place: the JAX
 package returns new pools and the engine donates the old ones
 (``serving/engine.py`` ``donate_argnums``), which XLA turns into the
-same in-place update.  The dense-cache ``apply`` (training, the
-scratch-cache prefill) and the spec-decode ``apply_paged_block`` are
-not ported yet (ROADMAP Queue A items 4 and 8).
+same in-place update.  Not ported yet: the dense KV cache of ``apply``
+(the scratch-cache prefill and ``decode_step``), cross-attention, and
+the spec-decode ``apply_paged_block`` (ROADMAP Queue A items 4 and 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -86,6 +88,53 @@ def _qkv(plan: AttentionPlan, params, x, positions):
     q = L.rope(q, positions, plan.rope_theta)
     k = L.rope(k, positions, plan.rope_theta)
     return q, k, v
+
+
+def attend(plan: AttentionPlan, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Causal grouped self-attention over a whole sequence, memory-bounded.
+
+    q (B, S, Hq, D); k/v (B, S, Hkv, D); positions (S,).  Sequences longer
+    than 2048 run the queries in chunks of 512, so the live score tensor
+    is (B, Hkv, G, 512, S); every query row's softmax still spans all keys,
+    so the result equals the unchunked one.  Returns (B, S, Hq * D).
+    """
+    s = q.shape[1]
+    if s <= 2048:
+        return _attend_unchunked(plan, q, k, v, positions, positions)
+    return torch.cat([
+        _attend_unchunked(plan, q[:, c0:c0 + 512], k, v,
+                          positions[c0:c0 + 512], positions)
+        for c0 in range(0, s, 512)], dim=1)
+
+
+def _attend_unchunked(plan: AttentionPlan, q, k, v, q_pos,
+                      kv_pos) -> torch.Tensor:
+    b, s, hq, d = q.shape
+    n_kv = plan.num_kv_heads
+    qg = q.reshape(b, s, n_kv, hq // n_kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst",
+                          qg.float() * (1.0 / math.sqrt(d)), k.float())
+    dist = q_pos[:, None] - kv_pos[None, :]              # (S, T)
+    mask = dist >= 0
+    if plan.sliding_window > 0:
+        mask = mask & (dist < plan.sliding_window)
+    scores = torch.where(mask, scores, torch.tensor(
+        -1e30, dtype=torch.float32, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    # bf16 probs for the value product, as the JAX package does
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, hq * d).to(plan.dtype)
+
+
+def apply(plan: AttentionPlan, params, x: torch.Tensor, *,
+          positions: torch.Tensor) -> torch.Tensor:
+    """Self-attention over the whole sequence without a cache (the JAX
+    package's ``apply`` with ``cache=None``: training).  x (B, S, d);
+    positions (S,).  Returns (B, S, d_model)."""
+    q, k, v = _qkv(plan, params, x, positions)
+    out = attend(plan, q, k, v, positions)
+    return L.linear_apply(plan.lin("o"), params["o"], out)
 
 
 def _check_impl(impl: str) -> None:

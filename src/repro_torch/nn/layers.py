@@ -112,16 +112,27 @@ def embedding_lookup(plan: EmbeddingPlan, params, tokens: torch.Tensor):
 
 
 def embedding_logits(plan: EmbeddingPlan, params, x: torch.Tensor):
-    """Tied LM head: x @ emb^T, returned in fp32.
+    """Tied LM head: x @ emb^T with fp32 output, never rounded to the
+    activation dtype (the JAX package asks XLA for
+    ``preferred_element_type=float32``).
 
-    A plain large matrix product left to ``torch.matmul`` (cuBLAS), as
-    the JAX package leaves it to XLA.  In bf16 cuBLAS accumulates in
-    fp32 and rounds the logits to bf16 before the fp32 cast."""
+    A plain large matrix product, left to cuBLAS as the JAX package
+    leaves it to XLA.  Where autograd records nothing on the card, bf16
+    operands go to ``torch.mm(..., out_dtype=float32)`` (fp32
+    accumulation and output; the op has no derivative).  Everywhere else
+    the operands are cast to fp32, which gives the same products: a bf16
+    value is exact in fp32."""
     if plan.hashed is not None:
         emb = H.materialize(params["emb"], plan.hashed, dtype=x.dtype)
     else:
         emb = params["emb"].to(x.dtype)
-    return torch.matmul(x, emb.t()).float()
+    records = torch.is_grad_enabled() and (x.requires_grad
+                                           or emb.requires_grad)
+    if x.is_cuda and x.dtype != torch.float32 and not records:
+        x2 = x.reshape(-1, x.shape[-1])
+        return torch.mm(x2, emb.t(), out_dtype=torch.float32) \
+            .reshape(*x.shape[:-1], emb.shape[0])
+    return torch.matmul(x.float(), emb.float().t())
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ package, so it runs on a machine with the card and no JAX:
 
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: fp32
 max error <= 1e-5 x the largest plain value (the sums run in another
-order); bf16 <= 1e-2 x (one rounding of the output); the top-k mask
-bitwise.
+order); bf16 <= 1e-2 x (one rounding of the output); ``dw`` (fp32 out)
+1e-5, and bitwise equal to itself across two launches; the top-k mask
+bitwise; a small model's training step as stated in its test.
 """
 import numpy as np
 import pytest
@@ -68,6 +69,116 @@ def test_cuda_hashed_matmul_vs_plain(cuda_device, m, dtype):
     # fp32: sum order only; bf16: one rounding of the output
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def _max_err(got, want):
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 37, 256])
+@pytest.mark.parametrize("panel_cols", [0, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_element_dx_vs_plain(cuda_device, m, panel_cols, dtype):
+    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125,
+                         seed=4, panel_cols=panel_cols)
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    w = torch.randn(spec.num_buckets, generator=g, device=cuda_device) \
+        .to(dtype)
+    gy = torch.randn(m, 1024, generator=g, device=cuda_device).to(dtype)
+    before = THK.element_matmul_t.launches
+    got = THK.element_matmul_t(gy, w, spec)
+    assert THK.element_matmul_t.launches == before + 1
+    assert got.shape == (m, 768) and got.dtype == dtype
+    err, scale = _max_err(got, THK.hashed_matmul_t_ref(gy, w, spec))
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-2) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel_cols", [0, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_element_dw_vs_plain_and_bitwise_repeatable(
+        cuda_device, panel_cols, dtype):
+    """dw is fp32 in both; the kernel sums each bucket in a fixed order,
+    so two launches give the same bits."""
+    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125,
+                         seed=8, panel_cols=panel_cols)
+    g = torch.Generator(device=cuda_device).manual_seed(panel_cols)
+    x = torch.randn(200, 768, generator=g, device=cuda_device).to(dtype)
+    gy = torch.randn(200, 1024, generator=g, device=cuda_device).to(dtype)
+    got = THK.element_dw(x, gy, spec)
+    again = THK.element_dw(x, gy, spec)
+    assert got.dtype == torch.float32 and got.shape == (spec.num_buckets,)
+    assert torch.equal(got, again)
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 8, 130])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_matmul_vs_plain(cuda_device, m, transpose, dtype):
+    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125,
+                         seed=5, mode="block", block_shape=(128, 64))
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    w = torch.randn(spec.real_param_shape(), generator=g,
+                    device=cuda_device).to(dtype)
+    k = spec.cols if transpose else spec.rows
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    before = THK.block_matmul.launches
+    got = THK.block_matmul(x, w, spec, transpose=transpose)
+    assert THK.block_matmul.launches == before + 1
+    ref = THK.hashed_matmul_t_ref if transpose else THK.hashed_matmul_ref
+    err, scale = _max_err(got, ref(x, w, spec))
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-2) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_shape", [(128, 128), (64, 192)])
+def test_cuda_block_dw_vs_plain_and_bitwise_repeatable(cuda_device,
+                                                       block_shape):
+    spec = TH.HashedSpec(virtual_shape=(768, 1152), compression=0.125,
+                         seed=6, mode="block", block_shape=block_shape)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(300, 768, generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    gy = torch.randn(300, 1152, generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    got = THK.block_dw(x, gy, spec)
+    assert torch.equal(got, THK.block_dw(x, gy, spec))
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["element", "block"])
+def test_cuda_autograd_function_vs_cpu(cuda_device, mode):
+    """The differentiable entry point on the card (forward, transpose and
+    dw kernels) against the CPU plain path, fp32, leading batch dims."""
+    if mode == "element":
+        spec = TH.HashedSpec(virtual_shape=(256, 384), compression=0.125,
+                             seed=2, panel_cols=128)
+    else:
+        spec = TH.HashedSpec(virtual_shape=(256, 384), compression=0.25,
+                             seed=2, mode="block", block_shape=(64, 128))
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal(spec.real_param_shape())
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 45, 256)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((3, 45, 384))
+                           .astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        tx = x.to(dev).clone().requires_grad_(True)
+        tw = w.to(dev).clone().requires_grad_(True)
+        y = TOPS.hashed_matmul(tx, tw, spec)
+        (y * cot.to(dev)).sum().backward()
+        grads.append((y.detach().cpu(), tx.grad.cpu(), tw.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        err, scale = _max_err(got, want)
+        assert err <= 1e-5 * max(1.0, scale)
 
 
 @pytest.mark.cuda
@@ -167,3 +278,56 @@ def test_cuda_engine_greedy_tokens_match_cpu_plain_path(cuda_device):
                (counts["hashed_matmul"], counts["paged_decode"],
                 counts["paged_prefill"]))
     assert all(c["plain_cuda_calls"] == 0 for c in counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["element", "block"])
+def test_cuda_train_step_matches_cpu_plain_path(cuda_device, mode):
+    """One gradient evaluation and one AdamW step of a small fp32 model on
+    the card (forward, transpose and dw kernels, block tiles of 32 x 32)
+    against the CPU plain path: loss within 1e-5 relative, every gradient
+    within 1e-4 x max(1, largest CPU value) (fp32 sums in another order
+    through 2 layers, forward and back)."""
+    import repro_torch.configs as C
+    from repro_torch import kernels as K
+    from repro_torch import policy
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    base = C.reduced(C.get("qwen3-1.7b")).with_(dtype="float32")
+    if mode == "element":
+        cfg = base.hashed_variant(0.125).with_(hash_panel_cols=32)
+        kernels = ("hashed_matmul", "hashed_matmul_t", "hashed_dw")
+    else:
+        cfg = base.policy_variant(policy.CompressionPolicy(
+            mode="block", block_shape=(32, 32), path="pallas"))
+        kernels = ("block_matmul", "block_dw")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)))
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    params = build(cfg, device="cpu").init(0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = build(cfg, device=dev)
+        p = opt_lib.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        leaves = [t.detach().requires_grad_(True)
+                  for t in opt_lib.tree_leaves(p)]
+        loss, _ = model.train_loss(opt_lib.tree_unflatten(p, leaves), b)
+        grads = torch.autograd.grad(loss, leaves)
+        opt = opt_lib.adamw(opt_lib.constant_lr(1e-3))
+        K.reset_counts()
+        state, metrics = step_lib.make_train_step(model, opt)(
+            {"params": p, "opt": opt.init(p),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}, b)
+        out[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                         float(metrics["loss"]), K.counts())
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    assert abs(gpu[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    assert abs(gpu[2] - cpu[2]) <= 1e-5 * abs(cpu[2])
+    for g_gpu, g_cpu in zip(gpu[1], cpu[1]):
+        err, scale = _max_err(g_gpu, g_cpu)
+        assert err <= 1e-4 * max(1.0, scale)
+    assert all(gpu[3][k]["launches"] > 0 for k in kernels)
+    assert all(c["plain_cuda_calls"] == 0 for c in gpu[3].values())

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
 - In a subprocess with ``sys.modules["jax"] = None`` (so any JAX import
-  fails), import ``repro_torch``, serve two requests on the CPU, and
-  check that nothing of ``repro`` was imported.
+  fails), import ``repro_torch``, serve two requests on the CPU, train
+  two steps through ``launch.train``, run the hashed GEMM's forward and
+  backward wrappers in both modes, and check that nothing of ``repro``
+  was imported.
 - An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py``: no JAX
   import and no import of the JAX package.
 - Without a CUDA device, the entry points raise unless asked for the CPU.
@@ -35,6 +37,20 @@ for uid in range(2):
                               + 2 + uid, max_new_tokens=3))
 done = eng.run()
 assert sorted(len(r.tokens) for r in done) == [3, 3], done
+import torch
+from repro_torch.launch import train
+from repro_torch.train import optimizer, step  # noqa: F401
+from repro_torch.core.hashed import HashedSpec
+from repro_torch.kernels import ops
+assert train.main(["--arch", "qwen3-1.7b", "--reduced", "--hashed",
+                   "--device", "cpu", "--steps", "2", "--batch", "2",
+                   "--seq", "8"]) == 0
+for spec in (HashedSpec((32, 64), 0.25, panel_cols=32),
+             HashedSpec((32, 64), 0.25, mode="block", block_shape=(16, 32))):
+    w = torch.zeros(spec.real_param_shape(), requires_grad=True)
+    x = torch.ones(3, 5, 32, requires_grad=True)
+    ops.hashed_matmul(x, w, spec).sum().backward()
+    assert w.grad.shape == w.shape and x.grad.shape == x.shape
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.") or m == "jax"
                   or m.startswith("jax.") or m.startswith("jaxlib")))
@@ -98,6 +114,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         Engine(model, model.init(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-1.7b", "--reduced"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
     assert Engine(model, model.init(0), device="cpu").device.type == "cpu"
 
 

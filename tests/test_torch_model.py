@@ -127,3 +127,25 @@ def test_seeded_init_is_reproducible_and_shaped_like_reference():
     assert tm.init_shapes() == jshapes
     assert torch.equal(a["layers"]["ffn"]["out"]["w"],
                        b["layers"]["ffn"]["out"]["w"])
+
+
+def test_bf16_lm_head_logits_are_never_rounded_to_bf16():
+    """The tied head of a bf16 model returns fp32 logits of the bf16
+    operands, as the JAX head does with ``preferred_element_type=float32``:
+    within 1e-5 of the largest |logit| (sum order only; a bf16 rounding
+    of the logits would be ~4e-3)."""
+    jc = jreduced(JC.get("qwen3-1.7b"))
+    tc = TC.reduced(TC.get("qwen3-1.7b"))
+    assert jc.dtype == tc.dtype == "bfloat16"
+    jm = jbuild(jc)
+    jp = jm.init(jax.random.PRNGKey(4))
+    tm = tbuild(tc, device="cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    x = np.random.default_rng(4).standard_normal((2, 8, tc.d_model)) \
+        .astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jl = np.asarray(jm.logits_head(jp, jx))
+    tl = tm.logits_head(tp, torch.from_numpy(x).to(torch.bfloat16))
+    assert tl.dtype == torch.float32 and jl.dtype == np.float32
+    err = np.abs(tl.numpy() - jl).max() / np.abs(jl).max()
+    assert err <= 1e-5, err
