@@ -8,12 +8,17 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
 1. the card's name and power limit (``nvidia-smi``) and torch's version;
 2. build every CUDA kernel from ``src/`` (one ``nvcc`` per source, all
    at once);
-3. hold each kernel against its plain PyTorch version on the card at the
-   full-width qwen3-1.7b-hashed8 shapes (the backward and block-mode
-   kernels at M = 1024, the rows of one B=4 x S=256 training step; each
-   ``dw`` kernel launched twice and bitwise equal to itself), and time
-   kernel, plain version and a PyTorch library yardstick with CUDA
-   events (median of 20, the L2 flushed before each launch);
+3. count the tensor-core instructions in the hashed-GEMM libraries'
+   SASS (``cuobjdump``, where it exists); hold each kernel against its
+   plain PyTorch version on the card at the full-width
+   qwen3-1.7b-hashed8 shapes (the forward GEMM at M = 1 to 1024, the
+   backward and block-mode kernels at M = 1024, the rows of one B=4 x
+   S=256 training step; each ``dw`` kernel and each tensor-core GEMM
+   launched twice and bitwise equal to itself; each GEMM's plan
+   printed), and time kernel, plain version and a PyTorch library
+   yardstick with CUDA events (median of 20, the L2 flushed before each
+   launch, the host ahead of the card), and both GEMM bodies at M = 8
+   to 1024;
 4. serve qwen3-1.7b-hashed8 at full width (28 layers, bf16, seeded
    weights) through the paged engine: 8 requests, every serving kernel's
    launch count > 0 and no plain version run on the card; then one
@@ -52,6 +57,7 @@ TOL_GRAD = 0.15                # bank grads: max |d| / max |plain| ...
 MIN_COS = 0.99                 # ... and cosine similarity, 28 bf16 layers
                                # forward and back, bf16 scatter in the plain
 M_TRAIN = 1024                 # rows of one B=4 x S=256 training step
+SWEEP_M = (8, 16, 64, 256, 1024)   # both GEMM bodies timed, forced
 SERVE_KERNELS = ("hashed_matmul", "paged_decode", "paged_prefill",
                  "topk_mask")
 
@@ -70,10 +76,15 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 class Timer:
     """Median CUDA-event time of ``fn`` over ``iters`` launches, the L2
     flushed before each (the serving path finds each layer's bank and
-    pages cold: a decode step touches ~350 MB of banks)."""
+    pages cold: a decode step touches ~350 MB of banks).  With
+    ``host_ahead`` the card sleeps ~0.5 ms after the flush, so the host
+    has enqueued the whole call before the first event fires: the time is
+    the device's, without Python's launch cost (phase 3's kernel times;
+    phase 5 times whole calls as they run, host cost included)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, host_ahead: bool = False):
         self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        self.host_ahead = host_ahead
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
@@ -82,6 +93,8 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush_buf.zero_()
+            if self.host_ahead:
+                torch.cuda._sleep(1_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -145,17 +158,23 @@ def main() -> int:
         for line in _build.ptxas_report(name).splitlines():
             print(f"    ptxas {name}: {line.strip()}")
 
+    check_sass(_build)
+
     cfg = C.get("qwen3-1.7b-hashed8").with_(hash_path="pallas")
     specs = bank_spec_map(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    timer = Timer(dev)
+    timer = Timer(dev, host_ahead=True)
     results = {}
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # -- 3a. hashed GEMM -------------------------------------------------------
+    # M = 1 and 8 are decode, 256 a B=4 x S=64 prefill dispatch, 1024 a
+    # training step; every bf16 product of more than 8 rows runs the
+    # tensor-core body, launched twice and bitwise equal to itself.  At
+    # M in SWEEP_M both bodies are timed, forced, for the plan's threshold.
     print("[3] kernels against their plain versions on the card", flush=True)
     for slot in ("q", "out"):
         path = ("layers", "attn", "q", "w") if slot == "q" \
@@ -163,13 +182,18 @@ def main() -> int:
         spec = specs[path]
         w = randn(spec.num_buckets) * (1.0 / spec.rows ** 0.5)
         v_dense = H.materialize(w, spec, dtype=torch.bfloat16)
-        for m in (1, 8, 256):
+        for m in (1, 8, 16, 64, 256, 1024):
             x = randn(m, spec.rows)
+            # the entry point pads M = 1 to the 8-row block
+            plan = THK.gemm_plan(max(m, 8), spec.rows, spec.cols, "element",
+                                 x.dtype)
             got = ops.hashed_matmul(x, w, spec)
             ref = hashed_matmul_ref(x, w, spec)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
             ok = rel <= TOL_BF16
+            note = repeat_note(plan, lambda: ops.hashed_matmul(x, w, spec),
+                               got)
             ms = timer(lambda: ops.hashed_matmul(x, w, spec))
             plain = timer(lambda: hashed_matmul_ref(x, w, spec))
             lib = timer(lambda: torch.matmul(x, v_dense))
@@ -179,13 +203,26 @@ def main() -> int:
             key = f"hashed_matmul {slot} M={m}"
             print(f"    {key}: {spec.rows}x{spec.cols} Kp="
                   f"{spec.buckets_per_panel} max_abs_err={err:.3e} "
-                  f"rel={rel:.2e} (tol {TOL_BF16}) {'ok' if ok else 'FAIL'}"
+                  f"rel={rel:.2e} (tol {TOL_BF16}){note} "
+                  f"{'ok' if ok else 'FAIL'}"
                   f"  ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f}"
-                  f" bound_ms={b:.5f} ({by})", flush=True)
+                  f" bound_ms={b:.5f} ({by})\n      plan {plan_str(plan)}",
+                  flush=True)
             if not ok:
                 fail(f"{key} disagrees with its plain version")
+            if m in SWEEP_M:
+                bodies = {}
+                for body in ("tensor_core", "cuda_core"):
+                    forced = THK.gemm_plan(m, spec.rows, spec.cols,
+                                           "element", x.dtype, body=body)
+                    bodies[body] = timer(lambda: THK.element_matmul(
+                        x, w, spec, plan=forced))
+                print(f"      bodies forced: tensor_core "
+                      f"{bodies['tensor_core']:.4f} ms, cuda_core "
+                      f"{bodies['cuda_core']:.4f} ms", flush=True)
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=b, bound_by=by)
+                                library_ms=lib, bound_ms=b, bound_by=by,
+                                body=plan.body)
 
     # -- 3b. paged decode ------------------------------------------------------
     nkv, hq, hd, ps = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
@@ -313,7 +350,7 @@ def main() -> int:
     # -- 3e. the training kernels: dx, dw and block mode at M = 1024 ----------
     specs_b = bank_spec_map(block_config(C, "pallas"))
 
-    def check(key, got, ref, tol, fns, nbytes, flops, extra=""):
+    def check(key, got, ref, tol, fns, nbytes, flops, extra="", plan=None):
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         ok = rel <= tol
@@ -322,11 +359,14 @@ def main() -> int:
         print(f"    {key}: max_abs_err={err:.3e} rel={rel:.2e} (tol {tol})"
               f"{extra} {'ok' if ok else 'FAIL'}  ms={ms:.4f} "
               f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b:.5f}"
-              f" ({by})", flush=True)
+              f" ({by})" + (f"\n      plan {plan_str(plan)}" if plan else ""),
+              flush=True)
         if not ok:
             fail(f"{key} disagrees with its plain version")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             library_ms=lib, bound_ms=b, bound_by=by)
+        if plan:
+            results[key]["body"] = plan.body
 
     def bitwise(fn):
         first, second = fn(), fn()
@@ -348,12 +388,16 @@ def main() -> int:
         # element dx = g @ V^T
         w = randn(spec.num_buckets) * scale
         v_dense = H.materialize(w, spec, dtype=torch.bfloat16)
-        check(f"hashed_matmul_t {slot} M={m}", THK.element_matmul_t(gy, w, spec),
+        plan = THK.gemm_plan(m, c, r, "element", gy.dtype)
+        got = THK.element_matmul_t(gy, w, spec)
+        check(f"hashed_matmul_t {slot} M={m}", got,
               THK.hashed_matmul_t_ref(gy, w, spec), TOL_BF16,
               (lambda: THK.element_matmul_t(gy, w, spec),
                lambda: THK.hashed_matmul_t_ref(gy, w, spec),
                lambda: torch.matmul(gy, v_dense.t())),
-              2 * (m * c + spec.num_buckets + m * r), gemm_flops)
+              2 * (m * c + spec.num_buckets + m * r), gemm_flops,
+              repeat_note(plan, lambda: THK.element_matmul_t(gy, w, spec),
+                          got), plan)
         # element dw (paper Eq. 12); the yardstick scatters with index_add_
         got, note = bitwise(lambda: THK.element_dw(x, gy, spec))
         ii = torch.arange(r, device=dev)[:, None]
@@ -373,19 +417,27 @@ def main() -> int:
         wb = randn(*spec_b.real_param_shape()) * scale
         vb = H.materialize(wb, spec_b, dtype=torch.bfloat16)
         bank_bytes = 2 * wb.numel()
-        check(f"block_matmul {slot} M={m}", THK.block_matmul(x, wb, spec_b),
+        bcols = spec_b.block_shape[1]
+        plan = THK.gemm_plan(m, r, c, "block", x.dtype, block_cols=bcols)
+        got = THK.block_matmul(x, wb, spec_b)
+        check(f"block_matmul {slot} M={m}", got,
               hashed_matmul_ref(x, wb, spec_b), TOL_BF16,
               (lambda: THK.block_matmul(x, wb, spec_b),
                lambda: hashed_matmul_ref(x, wb, spec_b),
                lambda: torch.matmul(x, vb)),
-              2 * m * (r + c) + bank_bytes, gemm_flops)
-        check(f"block_matmul_t {slot} M={m}",
-              THK.block_matmul(gy, wb, spec_b, transpose=True),
+              2 * m * (r + c) + bank_bytes, gemm_flops,
+              repeat_note(plan, lambda: THK.block_matmul(x, wb, spec_b), got),
+              plan)
+        plan = THK.gemm_plan(m, c, r, "block", gy.dtype, block_cols=bcols)
+        got = THK.block_matmul(gy, wb, spec_b, transpose=True)
+        check(f"block_matmul_t {slot} M={m}", got,
               THK.hashed_matmul_t_ref(gy, wb, spec_b), TOL_BF16,
               (lambda: THK.block_matmul(gy, wb, spec_b, transpose=True),
                lambda: THK.hashed_matmul_t_ref(gy, wb, spec_b),
                lambda: torch.matmul(gy, vb.t())),
-              2 * m * (r + c) + bank_bytes, gemm_flops)
+              2 * m * (r + c) + bank_bytes, gemm_flops,
+              repeat_note(plan, lambda: THK.block_matmul(
+                  gy, wb, spec_b, transpose=True), got), plan)
         got, note = bitwise(lambda: THK.block_dw(x, gy, spec_b))
         bidx, bsgn = H.block_indices(spec_b, dev)
         gi, gj = spec_b.tile_grid
@@ -599,17 +651,28 @@ def main() -> int:
                           tpu + "flash_prefill.py:54"),
         "topk_mask": ("topk_mask", "serve", tpu + "topk.py:70"),
     }
+    # more timed shapes of a kernel, beside its row's case
+    more = {"hashed_matmul": ["hashed_matmul out M=256",
+                              f"hashed_matmul out M={M_TRAIN}",
+                              f"hashed_matmul q M={M_TRAIN}"],
+            "hashed_matmul_t": [f"hashed_matmul_t q M={M_TRAIN}"],
+            "block_matmul": [f"block_matmul_t out M={M_TRAIN}",
+                             f"block_matmul q M={M_TRAIN}",
+                             f"block_matmul_t q M={M_TRAIN}"]}
     out = []
     for name, (_, _, src) in K.KERNELS.items():
         case, path, replaces = rows[name]
         r = results[case]
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces,
-                    "launches": path_counts[path][name]["launches"],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "shape": case, "path": path})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": path_counts[path][name]["launches"],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "shape": case, "path": path}
+        if name in more:
+            row["cases"] = [dict(shape=c, **results[c]) for c in more[name]]
+        out.append(row)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"kernels": out}))
@@ -617,6 +680,65 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def plan_str(plan) -> str:
+    return (f"body={plan.body} tile={plan.bm}x{plan.bn}x{plan.bk} "
+            f"splits={plan.splits} workspace={plan.workspace_bytes} B "
+            f"(V {plan.v_bytes}, split-K {plan.splitk_bytes})")
+
+
+def repeat_note(plan, fn, first) -> str:
+    """A tensor-core product launched again must give the same bits."""
+    if plan.body != "tensor_core":
+        return ""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail("a tensor-core GEMM is not bitwise equal to itself across "
+             "launches")
+    return " bitwise across two launches=True"
+
+
+def check_sass(build_mod) -> None:
+    """Count the tensor-core instructions (HGMMA, HMMA) in each
+    hashed-GEMM library's SASS, by function, where cuobjdump exists; fail
+    if a tensor-core GEMM function has none."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or ""
+    cand = Path(build_mod.nvcc_path()).with_name("cuobjdump")
+    if not tool and cand.exists():
+        tool = str(cand)
+    if not tool:
+        try:
+            import triton
+            cand = Path(triton.__file__).parent / "backends/nvidia/bin" \
+                / "cuobjdump"
+            tool = str(cand) if cand.exists() else ""
+        except ImportError:
+            pass
+    if not tool:
+        print("    SASS: cuobjdump not available, tensor-core instructions "
+              "not counted", flush=True)
+        return
+    for name in ("hashed_matmul", "hashed_block"):
+        sass = subprocess.run([tool, "-sass", str(build_mod.lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts = {}
+        for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+            fname = chunk.split("\n", 1)[0].strip()
+            counts[fname] = (chunk.count("HGMMA"),
+                             len(re.findall(r"\bHMMA\b", chunk)))
+        tc = {f: c for f, c in counts.items() if "tc_gemm" in f}
+        print(f"    SASS {name}: " + ", ".join(
+            f"{f[:40]} HGMMA={a} HMMA={b}" for f, (a, b) in tc.items())
+            + f"; {len(counts) - len(tc)} other functions HGMMA="
+            f"{sum(a for f, (a, _) in counts.items() if f not in tc)}",
+            flush=True)
+        if not tc or any(a + b == 0 for a, b in tc.values()):
+            fail(f"{name}: a tensor-core GEMM has no HGMMA/HMMA in its SASS")
 
 
 def block_config(C, path: str):

@@ -46,7 +46,7 @@ def nvcc_path() -> str:
                        "built at first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
@@ -64,7 +64,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     nvcc = nvcc_path()
     procs, out = {}, {}
     for name in names:
-        dst = _lib_path(name)
+        dst = lib_path(name)
         if dst.exists():
             out[name] = 0.0
             continue
@@ -90,7 +90,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 def ptxas_report(name: str) -> str:
     """The compiler's register/shared-memory lines for a built kernel."""
-    log = _lib_path(name).with_suffix(".log")
+    log = lib_path(name).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()
@@ -101,7 +101,7 @@ def ptxas_report(name: str) -> str:
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _libs:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build([name])
         _libs[name] = ctypes.CDLL(str(path))

@@ -6,13 +6,26 @@
 // block_matmul replaces the JAX package's kernels/hashed_matmul.py
 // _block_fwd_kernel (block_matmul, transpose=False and True): y = x @ V
 // or dx = g @ V^T.  The TPU kernel DMAs the chosen bank tile into VMEM
-// through a scalar-prefetched index map.  Here the shared decompress-GEMM
-// body (tile_gemm.cuh) stages each 32 x 64 piece of V or V^T into shared
-// memory: a bank tile is dense and contiguous, so the copy is coalesced
-// along the bank tile's rows (threads step along the bank's column index
-// in both orientations; the transpose writes shared memory transposed,
-// padded against bank conflicts).  What bounds it at full width is the
-// fp32 FMA loop on the CUDA cores: the bank reads are few and dense.
+// through a scalar-prefetched index map and casts it to x's dtype.
+// Nothing is hashed per element here, so the product is the work:
+//
+// - bf16, M > 8: block_decompress copies the bank tiles, signs folded
+//   in (a sign flip rounds nothing), into a dense bf16 V (R, C) in a
+//   workspace the wrapper allocates for this call, then the tensor-core
+//   body (tile_gemm.cuh tc_gemm) multiplies: V MN-major for the forward,
+//   K-major for the transpose (the same rows, taken transposed by the
+//   MMA).  Each 16-byte chunk of 8 virtual columns lies in one bank tile
+//   row (bcol % 8 == 0).  Gathering the bank tiles inside the GEMM's
+//   loader instead (each chunk's tile index and sign looked up per K
+//   tile, the sign folded into shared memory) was timed slower on the
+//   card at M = 1024 (PERF.md): the dense copy costs 2 R C bytes
+//   written and read back, the loader's lookups stall every K tile.
+//   What bounds it: the GEMM's operand traffic from L2 (tile_gemm.cuh).
+// - fp32, or M <= 8: the CUDA-core body (decompress_gemm with BlockTile),
+//   which stages each 32 x 64 piece of V or V^T into shared memory, the
+//   copy coalesced along the bank tile's rows (threads step along the
+//   bank's column index in both orientations; the transpose writes shared
+//   memory transposed, padded against bank conflicts).
 //
 // block_dw replaces _block_dw_kernel (block_dw): dbank[b] = sum over the
 // virtual tiles t with idx(t) = b of sigma(t) * (x^T g)[tile t].  The
@@ -90,6 +103,28 @@ struct BlockTile {
   }
 };
 
+// V (R, C) in bf16 for the tensor-core body, 8 consecutive columns of
+// one row per thread: a 16-byte copy from the bank tile, its sign folded
+// in (a sign flip rounds nothing).  bcol % 8 == 0, so the 8 columns lie
+// in one bank tile row.
+__global__ void __launch_bounds__(256)
+block_decompress(const uint4* __restrict__ bank, const int* __restrict__ idx,
+                 const int* __restrict__ sgn, uint4* __restrict__ v, int R,
+                 int C, int brow, int bcol, int gj) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int cpr = C / 8;
+  if (e >= (long long)R * cpr) return;
+  const int i = (int)(e / cpr), j = (int)(e % cpr) * 8;
+  const int t = (i / brow) * gj + j / bcol;
+  uint4 u = bank[((long long)idx[t] * brow * bcol + (i % brow) * bcol +
+                  j % bcol) / 8];
+  if (sgn[t] < 0) {
+    u.x ^= 0x80008000u; u.y ^= 0x80008000u;
+    u.z ^= 0x80008000u; u.w ^= 0x80008000u;
+  }
+  v[e] = u;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(rt::TG_NT)
 block_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -124,16 +159,16 @@ block_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 template <typename T>
-void run_matmul(const void* x, const void* bank, const int* idx,
-                const int* sgn, void* y, float* ws, int M, int K, int N,
-                int brow, int bcol, int gj, int splits, int transpose,
-                cudaStream_t s) {
+void run_cuda_core(const void* x, const void* bank, const int* idx,
+                   const int* sgn, void* y, float* ws, int M, int K, int N,
+                   int brow, int bcol, int gj, int bm, int splits,
+                   int transpose, cudaStream_t s) {
   if (transpose) {
     BlockTile<T, true> tile{(const T*)bank, idx, sgn, brow, bcol, gj};
-    rt::launch_gemm<T>(x, y, ws, M, K, N, splits, tile, s);
+    rt::launch_gemm<T>(x, y, ws, M, K, N, bm, splits, tile, s);
   } else {
     BlockTile<T, false> tile{(const T*)bank, idx, sgn, brow, bcol, gj};
-    rt::launch_gemm<T>(x, y, ws, M, K, N, splits, tile, s);
+    rt::launch_gemm<T>(x, y, ws, M, K, N, bm, splits, tile, s);
   }
 }
 
@@ -141,22 +176,39 @@ void run_matmul(const void* x, const void* bank, const int* idx,
 
 // Forward: x (M, K=R) -> y (M, N=C); transpose: g (M, K=C) -> dx (M, N=R).
 // bank (tiles, brow, bcol); idx, sgn int32 (gi * gj); dtype 0 fp32 / 1
-// bf16; ws fp32 splits * M * N when splits > 1.  R = gi * brow and
-// C = gj * bcol exactly (the wrapper refuses ragged tile grids).
+// bf16; bm the plan's row block: 8 or 64 run the CUDA-core body, 128 the
+// tensor-core body (bf16, K, N and bcol multiples of 8), which first
+// writes V (R, C) bf16 into vws.  ws fp32 splits * M * N when splits >
+// 1.  R = gi * brow and C = gj * bcol exactly (the wrapper refuses
+// ragged tile grids).
 extern "C" int hashed_block_matmul(const void* x, const void* bank,
                                    const void* idx, const void* sgn, void* y,
-                                   void* ws, int M, int K, int N, int brow,
-                                   int bcol, int gj, int dtype, int splits,
-                                   int transpose, void* stream) {
+                                   void* vws, void* ws, int M, int K, int N,
+                                   int brow, int bcol, int gj, int dtype,
+                                   int bm, int splits, int transpose,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (bm == rt::TC_BM) {
+    if (dtype != 1 || K % 8 || N % 8 || bcol % 8 || vws == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const int R = transpose ? N : K, C = transpose ? K : N;
+    const long long chunks = (long long)R * C / 8;
+    block_decompress<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(
+        (const uint4*)bank, (const int*)idx, (const int*)sgn, (uint4*)vws, R,
+        C, brow, bcol, gj);
+    float* wsf = (float*)ws;
+    return (int)(transpose
+                     ? rt::launch_tc_gemm<true>(x, vws, y, wsf, M, K, N, splits, s)
+                     : rt::launch_tc_gemm<false>(x, vws, y, wsf, M, K, N, splits, s));
+  }
   if (dtype == 1)
-    run_matmul<__nv_bfloat16>(x, bank, (const int*)idx, (const int*)sgn, y,
-                              (float*)ws, M, K, N, brow, bcol, gj, splits,
-                              transpose, s);
+    run_cuda_core<__nv_bfloat16>(x, bank, (const int*)idx, (const int*)sgn, y,
+                                 (float*)ws, M, K, N, brow, bcol, gj, bm,
+                                 splits, transpose, s);
   else
-    run_matmul<float>(x, bank, (const int*)idx, (const int*)sgn, y,
-                      (float*)ws, M, K, N, brow, bcol, gj, splits, transpose,
-                      s);
+    run_cuda_core<float>(x, bank, (const int*)idx, (const int*)sgn, y,
+                         (float*)ws, M, K, N, brow, bcol, gj, bm, splits,
+                         transpose, s);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ package's ``kernels/hashed_matmul.py``:
 
 - :func:`element_matmul` — ``y = x @ V``, element mode
   (``csrc/hashed_matmul.cu``; ``element_matmul(transpose=False)``);
-- :func:`element_matmul_t` — ``dx = g @ V^T``, the same kernel body
-  with the virtual coordinates swapped (``element_matmul(transpose=True)``);
+- :func:`element_matmul_t` — ``dx = g @ V^T``, the same kernels with the
+  virtual coordinates swapped (``element_matmul(transpose=True)``);
 - :func:`element_dw` — the bank gradient of paper Eq. 12
   (``csrc/hashed_dw.cu``; ``element_dw``);
 - :func:`block_matmul` — ``x @ V`` or ``x @ V^T`` in block mode
@@ -14,16 +14,32 @@ package's ``kernels/hashed_matmul.py``:
 - :func:`block_dw` — the block-mode bank gradient (same source;
   ``block_dw``).
 
-The element-mode GEMM recomputes each virtual weight's bucket and sign
-from the murmur hash inside the kernel and reuses each decompressed
-32 x 64 tile of V for all rows of a block; the block-mode GEMM stages
-dense bank tiles.  What bounds them on the H100 is the hashing (element
-mode) and the fp32 FMA loop, not bytes: see the sources.  Split-K over
-an fp32 workspace (reduced in split order) keeps enough blocks in
-flight when M is small.  Both ``dw`` kernels are bitwise deterministic:
-no float atomics; each bucket or bank tile is summed in a fixed order
-over a static map of the virtual positions that hash to it, built once
-per spec on the device and cached here.
+The three GEMMs run one of two bodies (``csrc/tile_gemm.cuh``), chosen
+by :func:`gemm_plan` from (M, K, N, mode, dtype):
+
+- **tensor cores** for bf16 products of more than 8 rows
+  (``TC_MIN_ROWS``; training steps, prefill): 128 x 128 output tiles,
+  ``wgmma`` on bf16 operands with fp32 sums — what the TPU kernels do,
+  which cast each decompressed tile to x's dtype and multiply with
+  ``preferred_element_type=float32`` — fed by a 4-slot ``cp.async``
+  ring.  V is first decompressed once per call into a bf16 workspace
+  (``R * C * 2`` bytes, 25.2 MB at qwen3-1.7b's ``ffn.out``, released
+  after the call): element mode hashes each virtual weight once there
+  and not once per row block, block mode copies bank tiles with their
+  signs.  Element mode is bound by the decompression's random L2
+  gathers (over half its time at every M), block mode by the GEMM's
+  operand traffic from L2.
+- **CUDA cores** for decode (M <= 8), where hashing every virtual weight
+  bounds the kernel and tensor cores would add nothing, and for fp32
+  inputs, which keep full fp32 products (no TF32): each block
+  decompresses 32 x 64 tiles of V into shared memory and reuses them for
+  all its rows.
+
+Split-K over an fp32 workspace (reduced in split order) keeps enough
+blocks in flight when M or N is small.  Same inputs, same bits: no float
+atomics anywhere.  Both ``dw`` kernels sum each bucket or bank tile in a
+fixed order over a static map of the virtual positions that hash to it,
+built once per spec on the device and cached here.
 
 The plain versions are the ports of the JAX package's ``kernels/ref.py``
 oracles (``hashed_matmul_ref``, ``hashed_matmul_t_ref``,
@@ -34,7 +50,8 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +60,13 @@ from repro_torch.core import hashed as H
 from repro_torch.kernels import _build
 
 _SMS = 132          # H100 SXM streaming multiprocessors
-_BN, _BK = 64, 32   # output / contraction tile of csrc/tile_gemm.cuh
+# bf16 products of at least this many rows take the tensor-core body;
+# decode (M <= 8) keeps the CUDA-core body, which the hashing bounds.
+# chip_smoke phase 3 times both bodies at M = 8, 16, 64, 256, 1024: on
+# the H100 they are within 10 % of each other at M = 8 (which one wins
+# changes between runs), and the tensor cores win from M = 16 on by 1.4x
+# or more (attn.q 0.0388 vs 0.0603 ms at M = 16; PERF.md)
+TC_MIN_ROWS = 9
 
 
 # ---------------------------------------------------------------------------
@@ -158,15 +181,77 @@ def block_tables(spec: H.HashedSpec, device):
 # kernels
 # ---------------------------------------------------------------------------
 
-def split_count(m: int, k: int, n: int) -> int:
-    """Split-K factor: enough (column, row, split) blocks for two waves
-    over the card's SMs, without splits shorter than one K tile."""
-    bm = 8 if m <= 8 else 64
-    blocks = -(-n // _BN) * -(-m // bm)
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one hashed GEMM runs: ``body`` ("tensor_core" or "cuda_core"),
+    its output tile (``bm`` x ``bn``), contraction tile ``bk``, split-K
+    factor, and the transient workspaces the wrapper allocates for the
+    call: ``v_bytes`` for V decompressed in bf16 (the tensor-core body,
+    either mode) and ``splitk_bytes`` for the fp32 partials (splits >
+    1)."""
+    body: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    v_bytes: int
+    splitk_bytes: int
+
+    @property
+    def workspace_bytes(self) -> int:
+        return self.v_bytes + self.splitk_bytes
+
+
+_TILES = {"tensor_core": (128, 128, 64), "cuda_core": (64, 64, 32)}
+
+
+def tensor_core_ok(m: int, k: int, n: int, dtype,
+                   block_cols: int = 0) -> bool:
+    """Whether the tensor-core body takes this product: bf16, K and N in
+    whole 16-byte chunks, and (block mode) bank tiles whose rows hold
+    whole chunks."""
+    return (dtype == torch.bfloat16 and m > 0 and k % 8 == 0 and n % 8 == 0
+            and block_cols % 8 == 0)
+
+
+def gemm_plan(m: int, k: int, n: int, mode: str = "element",
+              dtype=torch.bfloat16, *, block_cols: int = 0,
+              body: Optional[str] = None) -> GemmPlan:
+    """The plan of a (m, k) @ (k, n) hashed GEMM in ``mode`` ("element" or
+    "block", whose bank tiles have ``block_cols`` columns).  ``body``
+    forces a body (chip_smoke times both); by default bf16 products of
+    ``TC_MIN_ROWS`` rows or more take the tensor cores.  Split-K: the
+    CUDA-core body doubles the splits until its (column, row, split)
+    blocks make two waves over the card's SMs; the tensor-core body
+    doubles them while the doubled count still fits one wave (one block
+    per SM), since each split adds an fp32 partial of M x N to write and
+    reduce.  No split is shorter than one K tile (four on the tensor
+    cores)."""
+    if mode not in ("element", "block"):
+        raise ValueError(f"mode {mode!r}")
+    tc = tensor_core_ok(m, k, n, dtype, block_cols)
+    if body is None:
+        body = "tensor_core" if tc and m >= TC_MIN_ROWS else "cuda_core"
+    elif body == "tensor_core" and not tc:
+        raise ValueError(f"the tensor-core body takes bf16 with K, N and "
+                         f"bank tile columns multiples of 8; got m={m} "
+                         f"k={k} n={n} {dtype} block_cols={block_cols}")
+    elif body not in _TILES:
+        raise ValueError(f"body {body!r}")
+    bm, bn, bk = _TILES[body]
+    if body == "cuda_core" and m <= 8:
+        bm = 8
+    blocks = -(-n // bn) * -(-m // bm)
     splits = 1
-    while blocks * splits < 2 * _SMS and (splits * 2) * _BK <= k:
-        splits *= 2
-    return splits
+    if body == "tensor_core":
+        while 2 * blocks * splits <= _SMS and splits * 2 * bk * 4 <= k:
+            splits *= 2
+    else:
+        while blocks * splits < 2 * _SMS and splits * 2 * bk <= k:
+            splits *= 2
+    v_bytes = k * n * 2 if body == "tensor_core" else 0
+    return GemmPlan(body, bm, bn, bk, splits, v_bytes,
+                    splits * m * n * 4 if splits > 1 else 0)
 
 
 def _check(what: str, x: torch.Tensor, k: int) -> None:
@@ -196,17 +281,27 @@ def _grad_rows(what: str, x: torch.Tensor, g: torch.Tensor,
     return g
 
 
-def _gemm_out(x: torch.Tensor, n: int):
-    """Output and split-K workspace of a (M, K) @ (K, n) kernel GEMM."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data does not start on the 16-byte
+    boundary the tensor-core body's copies need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _gemm_out(x: torch.Tensor, n: int, plan: GemmPlan):
+    """Output, split-K workspace and V workspace of a (M, K) @ (K, n)
+    kernel GEMM run by ``plan``, sized from the operands (a plan may have
+    been made for another shape)."""
     m, k = x.shape
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    splits = split_count(m, k, n)
-    ws = torch.empty((splits, m, n), dtype=torch.float32,
-                     device=x.device) if splits > 1 else None
-    return y, ws, splits
+    ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
+                     device=x.device) if plan.splits > 1 else None
+    vws = torch.empty(k * n, dtype=torch.bfloat16, device=x.device) \
+        if plan.body == "tensor_core" else None
+    return y, ws, vws
 
 
-def _element_gemm(x, w, spec, transpose: bool):
+def _element_gemm(x, w, spec, transpose: bool,
+                  plan: Optional[GemmPlan] = None):
     what = "element_matmul_t" if transpose else "element_matmul"
     if spec.mode != "element":
         raise ValueError(f"{what} takes element-mode specs")
@@ -216,38 +311,45 @@ def _element_gemm(x, w, spec, transpose: bool):
     if w.numel() != spec.num_buckets:
         raise ValueError(f"bank has {w.numel()} values, spec wants "
                          f"{spec.num_buckets}")
-    y, ws, splits = _gemm_out(x, n)
+    plan = plan or gemm_plan(x.shape[0], k, n, "element", x.dtype)
+    if plan.body == "tensor_core":
+        x = _aligned(x)
+    y, ws, vws = _gemm_out(x, n, plan)
     fn = _build.bind("hashed_matmul", "hashed_element_matmul",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                      + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint]
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(y), _build.ptr(ws),
-            x.shape[0], k, n, spec.buckets_per_panel, spec.panel_cols,
-            spec.seed & 0xFFFFFFFF, int(spec.use_sign),
-            _build.DTYPE_CODE[x.dtype], splits, int(transpose),
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(y), _build.ptr(vws),
+            _build.ptr(ws), x.shape[0], k, n, spec.buckets_per_panel,
+            spec.panel_cols, spec.seed & 0xFFFFFFFF, int(spec.use_sign),
+            _build.DTYPE_CODE[x.dtype], plan.bm, plan.splits, int(transpose),
             _build.stream_of(x))
     _build.check(rc, what)
     return y
 
 
 def element_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
-                   out_dtype=None) -> torch.Tensor:
-    """x (M, R) @ V -> (M, C), element mode."""
+                   out_dtype=None,
+                   plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """x (M, R) @ V -> (M, C), element mode; ``plan`` (default
+    :func:`gemm_plan`) picks the body."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return hashed_matmul_ref(x, w, spec, out_dtype)
-    y = _element_gemm(x, w, spec, transpose=False)
+    y = _element_gemm(x, w, spec, transpose=False, plan=plan)
     element_matmul.launches += 1
     return y if out_dtype == x.dtype else y.to(out_dtype)
 
 
 def element_matmul_t(g: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
-                     out_dtype=None) -> torch.Tensor:
-    """g (M, C) @ V^T -> (M, R), element mode (the input gradient)."""
+                     out_dtype=None,
+                     plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """g (M, C) @ V^T -> (M, R), element mode (the input gradient);
+    ``plan`` as in :func:`element_matmul`."""
     out_dtype = out_dtype or g.dtype
     if g.device.type == "cpu":
         return hashed_matmul_t_ref(g, w, spec, out_dtype)
-    y = _element_gemm(g, w, spec, transpose=True)
+    y = _element_gemm(g, w, spec, transpose=True, plan=plan)
     element_matmul_t.launches += 1
     return y if out_dtype == g.dtype else y.to(out_dtype)
 
@@ -288,9 +390,11 @@ def _check_block_grid(what: str, spec: H.HashedSpec):
 
 
 def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
-                 transpose: bool = False, out_dtype=None) -> torch.Tensor:
+                 transpose: bool = False, out_dtype=None,
+                 plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """x (M, R) @ V -> (M, C), or with ``transpose`` g (M, C) @ V^T ->
     (M, R), block mode; w is the bank (bank_tiles, brow, bcol).
+    ``plan`` (default :func:`gemm_plan`) picks the body.
     ``block_matmul.transposed`` counts the launches of the second kind."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -304,15 +408,20 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
         raise ValueError(f"bank {tuple(w.shape)}, spec wants "
                          f"{spec.real_param_shape()}")
     idx, sgn, _, _ = block_tables(spec, x.device)
-    y, ws, splits = _gemm_out(x, n)
     brow, bcol = spec.block_shape
+    plan = plan or gemm_plan(x.shape[0], k, n, "block", x.dtype,
+                             block_cols=bcol)
+    if plan.body == "tensor_core":
+        x, w = _aligned(x), _aligned(w)
+    y, ws, vws = _gemm_out(x, n, plan)
     fn = _build.bind("hashed_block", "hashed_block_matmul",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p])
     rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(idx), _build.ptr(sgn),
-            _build.ptr(y), _build.ptr(ws), x.shape[0], k, n, brow, bcol,
-            spec.tile_grid[1], _build.DTYPE_CODE[x.dtype], splits,
-            int(transpose), _build.stream_of(x))
+            _build.ptr(y), _build.ptr(vws), _build.ptr(ws), x.shape[0], k, n,
+            brow, bcol,
+            spec.tile_grid[1], _build.DTYPE_CODE[x.dtype], plan.bm,
+            plan.splits, int(transpose), _build.stream_of(x))
     _build.check(rc, "block_matmul")
     block_matmul.launches += 1
     block_matmul.transposed += int(transpose)

@@ -135,6 +135,91 @@ def test_cuda_block_matmul_vs_plain(cuda_device, m, transpose, dtype):
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2) * scale
 
 
+def _tc_case(cuda_device, spec, m, transpose, seed):
+    """bf16 x and bank for a tensor-core GEMM of ``m`` rows."""
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    w = torch.randn(spec.real_param_shape(), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    k = spec.cols if transpose else spec.rows
+    x = torch.randn(m, k, generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    return x, w
+
+
+def _check_tc(got, again, want, plan):
+    """Tensor-core body, one rounding of the bf16 output (1e-2 x the
+    largest plain value), same bits on a second launch."""
+    assert plan.body == "tensor_core"
+    err, scale = _max_err(got, want)
+    assert err <= 1e-2 * scale
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 64, 130, 1024])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("panel_cols", [0, 256])
+def test_cuda_element_tensor_core_gemm_vs_plain(cuda_device, m, transpose,
+                                                panel_cols):
+    """bf16 element-mode GEMM of more than 8 rows, both orientations:
+    K and N (392, 648) are not multiples of the 64 x 128 tiles, and the
+    256-column panels end inside a tile."""
+    spec = TH.HashedSpec(virtual_shape=(392, 648), compression=0.125,
+                         seed=11, panel_cols=panel_cols)
+    x, w = _tc_case(cuda_device, spec, m, transpose, m + panel_cols)
+    k, n = (spec.cols, spec.rows) if transpose else (spec.rows, spec.cols)
+    plan = THK.gemm_plan(m, k, n, "element", torch.bfloat16)
+    fn = THK.element_matmul_t if transpose else THK.element_matmul
+    ref = THK.hashed_matmul_t_ref if transpose else THK.hashed_matmul_ref
+    _check_tc(fn(x, w, spec), fn(x, w, spec), ref(x, w, spec), plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 64, 130, 1024])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("shape,block_shape", [((336, 520), (48, 40)),
+                                               ((384, 640), (128, 128))])
+def test_cuda_block_tensor_core_gemm_vs_plain(cuda_device, m, transpose,
+                                              shape, block_shape):
+    """bf16 block-mode GEMM of more than 8 rows, both orientations; with
+    48 x 40 bank tiles one staged tile spans many bank tiles and signs."""
+    spec = TH.HashedSpec(virtual_shape=shape, compression=0.125, seed=12,
+                         mode="block", block_shape=block_shape)
+    x, w = _tc_case(cuda_device, spec, m, transpose, m)
+    k, n = (spec.cols, spec.rows) if transpose else (spec.rows, spec.cols)
+    plan = THK.gemm_plan(m, k, n, "block", torch.bfloat16,
+                         block_cols=block_shape[1])
+    ref = THK.hashed_matmul_t_ref if transpose else THK.hashed_matmul_ref
+    _check_tc(THK.block_matmul(x, w, spec, transpose=transpose),
+              THK.block_matmul(x, w, spec, transpose=transpose),
+              ref(x, w, spec), plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["element", "block"])
+def test_cuda_gemm_bodies_agree_bitwise_repeatable(cuda_device, mode):
+    """Both bodies forced at one bf16 shape with split-K (M = 64, K =
+    2048): each within one bf16 rounding of the plain version and equal
+    to itself across launches."""
+    if mode == "element":
+        spec = TH.HashedSpec(virtual_shape=(2048, 512), compression=0.125,
+                             seed=13, panel_cols=128)
+    else:
+        spec = TH.HashedSpec(virtual_shape=(2048, 512), compression=0.125,
+                             seed=13, mode="block", block_shape=(128, 128))
+    x, w = _tc_case(cuda_device, spec, 64, False, 5)
+    want = THK.hashed_matmul_ref(x, w, spec)
+    for body in ("tensor_core", "cuda_core"):
+        plan = THK.gemm_plan(64, 2048, 512, mode, torch.bfloat16,
+                             block_cols=128, body=body)
+        assert body == "cuda_core" or plan.splits > 1
+        fn = THK.element_matmul if mode == "element" else THK.block_matmul
+        got, again = fn(x, w, spec, plan=plan), fn(x, w, spec, plan=plan)
+        err, scale = _max_err(got, want)
+        assert err <= 1e-2 * scale
+        assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block_shape", [(128, 128), (64, 192)])
 def test_cuda_block_dw_vs_plain_and_bitwise_repeatable(cuda_device,

@@ -5,8 +5,8 @@
   two steps through ``launch.train``, run the hashed GEMM's forward and
   backward wrappers in both modes, and check that nothing of ``repro``
   was imported.
-- An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py``: no JAX
-  import and no import of the JAX package.
+- An AST scan of ``src/repro_torch/**``, ``chip_smoke.py`` and
+  ``gemm_timing.py``: no JAX import and no import of the JAX package.
 - Without a CUDA device, the entry points raise unless asked for the CPU.
 """
 import ast
@@ -88,7 +88,7 @@ def _imports(path: Path):
 
 def test_no_jax_or_reference_imports_in_port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "gemm_timing.py"]
     assert len(files) > 20
     bad = []
     for f in files:
