@@ -8,29 +8,33 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
 1. the card's name and power limit (``nvidia-smi``) and torch's version;
 2. build every CUDA kernel from ``src/`` (one ``nvcc`` per source, all
    at once);
-3. count the tensor-core instructions in the hashed-GEMM libraries'
-   SASS (``cuobjdump``, where it exists); hold each kernel against its
-   plain PyTorch version on the card at the full-width
-   qwen3-1.7b-hashed8 shapes (the forward GEMM at M = 1 to 1024, the
-   backward and block-mode kernels at M = 1024, the rows of one B=4 x
-   S=256 training step; each ``dw`` kernel and each tensor-core GEMM
-   launched twice and bitwise equal to itself; each GEMM's plan
-   printed), and time kernel, plain version and a PyTorch library
+3. count the tensor-core instructions in the SASS of every tensor-core
+   function (the hashed GEMMs, ``block_dw``, the bf16 prefill) with
+   ``cuobjdump``, where it exists; hold each kernel against its plain
+   PyTorch version on the card at the full-width qwen3-1.7b-hashed8
+   shapes (the forward GEMM at M = 1 to 1024, the backward and
+   block-mode kernels at M = 1024, the rows of one B=4 x S=256 training
+   step; each ``dw`` kernel and each tensor-core GEMM launched twice and
+   bitwise equal to itself; each GEMM's and ``block_dw``'s plan
+   printed, and the tensor-core ``block_dw`` planned at every block-mode
+   projection), and time kernel, plain version and a PyTorch library
    yardstick with CUDA events (median of 20, the L2 flushed before each
-   launch, the host ahead of the card), and both GEMM bodies at M = 8
-   to 1024;
+   launch, the host ahead of the card), both GEMM bodies at M = 8 to
+   1024, both ``block_dw`` bodies and its split counts;
 4. serve qwen3-1.7b-hashed8 at full width (28 layers, bf16, seeded
    weights) through the paged engine: 8 requests, every serving kernel's
-   launch count > 0 and no plain version run on the card; then one
-   decode step on the kernel path against the plain path;
+   launch count > 0, every prefill launch on the tensor-core body and no
+   plain version run on the card; then one decode step on the kernel
+   path against the plain path;
 5. profile a decode step and a prefill dispatch;
 6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
    lm_stream batches of B=4 x S=256), element mode and then block mode
    (128 x 128 tiles): one step's loss and bank gradients on the kernel
    path against the plain path, then steps on one repeated batch (the
-   loss must fall; every training kernel launched, no plain version run
-   on the card), step time, peak memory and a profile of one step; then
-   serve 4 requests in block mode.
+   loss must fall; every training kernel launched, every ``block_dw``
+   on its tensor-core body, no plain version run on the card), step
+   time, peak memory and a profile of one step; then serve 4 requests
+   in block mode.
 
 Prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``.
@@ -217,9 +221,8 @@ def main() -> int:
                                            "element", x.dtype, body=body)
                     bodies[body] = timer(lambda: THK.element_matmul(
                         x, w, spec, plan=forced))
-                print(f"      bodies forced: tensor_core "
-                      f"{bodies['tensor_core']:.4f} ms, cuda_core "
-                      f"{bodies['cuda_core']:.4f} ms", flush=True)
+                print(f"      bodies forced: {bodies_str(bodies)}",
+                      flush=True)
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                 library_ms=lib, bound_ms=b, bound_by=by,
                                 body=plan.body)
@@ -287,8 +290,10 @@ def main() -> int:
         ok = rel <= TOL_BF16 and pad_zero
         print(f"    paged_prefill B=4 S={S} window={window}: "
               f"max_abs_err={err:.3e} rel={rel:.2e} (tol {TOL_BF16}) "
-              f"pad/count-0 zero={pad_zero} {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"pad/count-0 zero={pad_zero} {'ok' if ok else 'FAIL'}"
+              f"\n      body="
+              f"{'tensor_core' if qp.dtype == torch.bfloat16 else 'cuda_core'}"
+              f" (by dtype)", flush=True)
         if not ok:
             fail("paged_prefill disagrees with its plain version")
     ms = timer(lambda: paged_prefill_attention(qp, pk, pv, ptable, starts,
@@ -376,6 +381,41 @@ def main() -> int:
             fail("a dw kernel is not bitwise equal to itself across launches")
         return first, f" bitwise across two launches={same}"
 
+    def check_block_dw(slot, x, gy, spec_b):
+        """block_dw against its plain version and the matmul + index_add_
+        yardstick, bitwise across launches, then its forced plans."""
+        m, r, c = x.shape[0], spec_b.rows, spec_b.cols
+        plan = THK.block_dw_plan(m, spec_b, x.dtype)
+        got, note = bitwise(lambda: THK.block_dw(x, gy, spec_b))
+        bidx, bsgn = H.block_indices(spec_b, dev)
+        gi, gj = spec_b.tile_grid
+        brow, bcol = spec_b.block_shape
+
+        def block_dw_library():
+            tiles = torch.matmul(x.t(), gy).float().reshape(
+                gi, brow, gj, bcol).permute(0, 2, 1, 3) \
+                * bsgn[..., None, None].float()
+            return torch.zeros(spec_b.real_param_shape(), device=dev) \
+                .index_add_(0, bidx.reshape(-1),
+                            tiles.reshape(-1, brow, bcol))
+        check(f"block_dw {slot} M={m}", got,
+              THK.hashed_dw_ref(x, gy, spec_b), TOL_DW,
+              (lambda: THK.block_dw(x, gy, spec_b),
+               lambda: THK.hashed_dw_ref(x, gy, spec_b), block_dw_library),
+              2 * m * (r + c) + 4 * spec_b.real_param_count(),
+              2.0 * m * r * c, note, plan)
+        block_dw_sweep(THK, x, gy, spec_b, timer)
+
+    # every block-mode projection of the main path (bf16, M = 1024) must
+    # take the tensor-core block_dw
+    for path, spec_b in specs_b.items():
+        plan = THK.block_dw_plan(M_TRAIN, spec_b, torch.bfloat16)
+        if plan.body != "tensor_core":
+            fail(f"block_dw at {'.'.join(path)} M={M_TRAIN} would run "
+                 f"{plan_str(plan)}")
+    print(f"    block_dw plans at M={M_TRAIN}: tensor_core at all "
+          f"{len(specs_b)} block-mode projections", flush=True)
+
     m = M_TRAIN
     for slot in ("q", "out"):
         path = ("layers", "attn", "q", "w") if slot == "q" \
@@ -438,24 +478,11 @@ def main() -> int:
               2 * m * (r + c) + bank_bytes, gemm_flops,
               repeat_note(plan, lambda: THK.block_matmul(
                   gy, wb, spec_b, transpose=True), got), plan)
-        got, note = bitwise(lambda: THK.block_dw(x, gy, spec_b))
-        bidx, bsgn = H.block_indices(spec_b, dev)
-        gi, gj = spec_b.tile_grid
-        brow, bcol = spec_b.block_shape
-
-        def block_dw_library():
-            tiles = torch.matmul(x.t(), gy).float().reshape(
-                gi, brow, gj, bcol).permute(0, 2, 1, 3) \
-                * bsgn[..., None, None].float()
-            return torch.zeros(spec_b.real_param_shape(), device=dev) \
-                .index_add_(0, bidx.reshape(-1),
-                            tiles.reshape(-1, brow, bcol))
-        check(f"block_dw {slot} M={m}", got,
-              THK.hashed_dw_ref(x, gy, spec_b), TOL_DW,
-              (lambda: THK.block_dw(x, gy, spec_b),
-               lambda: THK.hashed_dw_ref(x, gy, spec_b), block_dw_library),
-              2 * m * (r + c) + 2 * bank_bytes, gemm_flops, note)
+        check_block_dw(slot, x, gy, spec_b)
         del vb
+    # attn.k: 16 bank tiles, the fewest (the splits must fill the SMs)
+    spec_k = specs_b[("layers", "attn", "k", "w")]
+    check_block_dw("k", randn(m, spec_k.rows), randn(m, spec_k.cols), spec_k)
     del timer
     torch.cuda.empty_cache()
 
@@ -658,7 +685,8 @@ def main() -> int:
             "hashed_matmul_t": [f"hashed_matmul_t q M={M_TRAIN}"],
             "block_matmul": [f"block_matmul_t out M={M_TRAIN}",
                              f"block_matmul q M={M_TRAIN}",
-                             f"block_matmul_t q M={M_TRAIN}"]}
+                             f"block_matmul_t q M={M_TRAIN}"],
+            "block_dw": [f"block_dw q M={M_TRAIN}", f"block_dw k M={M_TRAIN}"]}
     out = []
     for name, (_, _, src) in K.KERNELS.items():
         case, path, replaces = rows[name]
@@ -683,9 +711,37 @@ def main() -> int:
 
 
 def plan_str(plan) -> str:
+    """A GEMM plan or a ``block_dw`` plan on one line."""
+    if not hasattr(plan, "bm"):
+        return (f"body={plan.body} splits={plan.splits} "
+                f"workspace={plan.workspace_bytes} B")
     return (f"body={plan.body} tile={plan.bm}x{plan.bn}x{plan.bk} "
             f"splits={plan.splits} workspace={plan.workspace_bytes} B "
             f"(V {plan.v_bytes}, split-K {plan.splitk_bytes})")
+
+
+def bodies_str(times) -> str:
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+
+
+def block_dw_sweep(THK, x, gy, spec, timer) -> None:
+    """Time ``block_dw`` with each body forced, and the tensor-core body
+    at 1 to 16 pieces a chain, each forced plan held to the default
+    plan's result (the pieces change only the fp32 summation order)."""
+    m = x.shape[0]
+    want = THK.block_dw(x, gy, spec)
+    times = {}
+    for body, splits in [("cuda_core", 1)] + [("tensor_core", s)
+                                              for s in (1, 2, 4, 8, 16)]:
+        plan = THK.block_dw_plan(m, spec, x.dtype, body=body, splits=splits)
+        got = THK.block_dw(x, gy, spec, plan=plan)
+        torch.cuda.synchronize()
+        if rel_err(got, want)[1] > TOL_DW:
+            fail(f"block_dw with a forced plan ({plan_str(plan)}) "
+                 f"disagrees with the default plan")
+        key = body if body == "cuda_core" else f"tensor_core splits={splits}"
+        times[key] = timer(lambda: THK.block_dw(x, gy, spec, plan=plan))
+    print(f"      bodies forced: {bodies_str(times)}", flush=True)
 
 
 def repeat_note(plan, fn, first) -> str:
@@ -700,10 +756,17 @@ def repeat_note(plan, fn, first) -> str:
     return " bitwise across two launches=True"
 
 
+# library -> the functions that must run on the tensor cores (name part)
+TC_FUNCTIONS = {"hashed_matmul": ("tc_gemm",),
+                "hashed_block": ("tc_gemm", "tc_xtg"),
+                "flash_prefill": ("prefill_tc",)}
+
+
 def check_sass(build_mod) -> None:
-    """Count the tensor-core instructions (HGMMA, HMMA) in each
-    hashed-GEMM library's SASS, by function, where cuobjdump exists; fail
-    if a tensor-core GEMM function has none."""
+    """Count the tensor-core instructions (HGMMA, HMMA) in the SASS of the
+    tensor-core functions of each library in ``TC_FUNCTIONS``, by
+    function, where cuobjdump exists; fail if one of them is missing or
+    has none."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or ""
@@ -722,7 +785,7 @@ def check_sass(build_mod) -> None:
         print("    SASS: cuobjdump not available, tensor-core instructions "
               "not counted", flush=True)
         return
-    for name in ("hashed_matmul", "hashed_block"):
+    for name, wanted in TC_FUNCTIONS.items():
         sass = subprocess.run([tool, "-sass", str(build_mod.lib_path(name))],
                               capture_output=True, text=True,
                               timeout=120).stdout
@@ -731,14 +794,19 @@ def check_sass(build_mod) -> None:
             fname = chunk.split("\n", 1)[0].strip()
             counts[fname] = (chunk.count("HGMMA"),
                              len(re.findall(r"\bHMMA\b", chunk)))
-        tc = {f: c for f, c in counts.items() if "tc_gemm" in f}
+        tc = {f: c for f, c in counts.items() if any(w in f for w in wanted)}
+        # a mangled name from the wanted part on: kernel and template args
+        short = {f: f[min(f.find(w) for w in wanted if w in f):][:32]
+                 for f in tc}
         print(f"    SASS {name}: " + ", ".join(
-            f"{f[:40]} HGMMA={a} HMMA={b}" for f, (a, b) in tc.items())
+            f"{short[f]} HGMMA={a} HMMA={b}" for f, (a, b) in tc.items())
             + f"; {len(counts) - len(tc)} other functions HGMMA="
             f"{sum(a for f, (a, _) in counts.items() if f not in tc)}",
             flush=True)
-        if not tc or any(a + b == 0 for a, b in tc.values()):
-            fail(f"{name}: a tensor-core GEMM has no HGMMA/HMMA in its SASS")
+        for w in wanted:
+            mine = [c for f, c in tc.items() if w in f]
+            if not mine or any(a + b == 0 for a, b in mine):
+                fail(f"{name}: {w} has no HGMMA/HMMA in its SASS")
 
 
 def block_config(C, path: str):
@@ -750,10 +818,17 @@ def block_config(C, path: str):
 
 
 def check_counts(counts, kernels, what: str) -> None:
-    """Every kernel of a path launched, no plain version run on the card."""
+    """Every kernel of a path launched, every launch of one that has a
+    tensor-core body on that body (the paths run bf16 at full width), no
+    plain version run on the card."""
     for name in kernels:
-        if counts[name]["launches"] <= 0:
+        c = counts[name]
+        if c["launches"] <= 0:
             fail(f"kernel {name} was not launched on the {what} path")
+        if c.get("tensor_core", c["launches"]) != c["launches"]:
+            fail(f"{name} ran its CUDA-core body "
+                 f"{c['launches'] - c['tensor_core']} times on the {what} "
+                 f"path")
     for name, c in counts.items():
         if c["plain_cuda_calls"] != 0:
             fail(f"plain version of {name} ran on the card on the {what} "

@@ -1,4 +1,4 @@
-"""Time the hashed GEMM kernels of one checkout on the card.
+"""Time the hashed GEMM and bank-gradient kernels of one checkout on the card.
 
     python3 gemm_timing.py [--src DIR] [--label NAME]
 
@@ -8,8 +8,10 @@ checkout unpacked beside this one (``git archive``): run it on both
 trees back to back on the same card, alternating (A, B, B, A), to
 compare them.  Shapes: qwen3-1.7b-hashed8 at full width, ``attn.q``
 (2048 x 2048) and ``ffn.out`` (6144 x 2048), element mode forward at
-M = 8, 256 and 1024, the element transpose (``dx``) and the block-mode
-forward and transpose (128 x 128 tiles) at M = 1024.  Each time is the
+M = 8, 256 and 1024, the element transpose (``dx``), the block-mode
+forward and transpose (128 x 128 tiles) at M = 1024, and the block-mode
+bank gradient (``block_dw``) at M = 1024 at ``attn.q``, ``attn.k``
+(2048 x 1024) and ``ffn.out``.  Each time is the
 median over 20 launches of CUDA events around one wrapper call, the L2
 flushed before each and the host ahead of the card (a device-side sleep
 after the flush), so Python's launch cost is not counted.  With
@@ -123,12 +125,23 @@ def main() -> int:
             (f"block transpose {slot} M=1024",
              lambda: THK.block_matmul(gy, wb, spec_b, transpose=True)),
         ]
-        for name, fn in cases:
-            row = {"label": args.label, "case": name, "ms": timer(fn, flush)}
-            if args.split:
-                row["device_ms_by_kernel"] = split(fn, flush)
-            print(json.dumps(row), flush=True)
+        report(cases, args, flush)
+    for slot in ("q", "k", "out"):
+        spec_b = specs_b[{"q": ("layers", "attn", "q", "w"),
+                          "k": ("layers", "attn", "k", "w"),
+                          "out": ("layers", "ffn", "out", "w")}[slot]]
+        x, gy = randn(1024, spec_b.rows), randn(1024, spec_b.cols)
+        report([(f"block dw {slot} M=1024",
+                 lambda: THK.block_dw(x, gy, spec_b))], args, flush)
     return 0
+
+
+def report(cases, args, flush) -> None:
+    for name, fn in cases:
+        row = {"label": args.label, "case": name, "ms": timer(fn, flush)}
+        if args.split:
+            row["device_ms_by_kernel"] = split(fn, flush)
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

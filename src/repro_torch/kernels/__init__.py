@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the PyTorch port, one per Pallas kernel of
 the JAX package, each with its plain PyTorch version beside it.
 
-Every wrapper counts its kernel launches (``<wrapper>.launches``) and
+Every wrapper counts its kernel launches (``<wrapper>.launches``; those
+of a kernel with a tensor-core body also ``<wrapper>.tensor_core``) and
 every plain version counts the calls it was given CUDA tensors
 (``<plain>.cuda_calls``), so a run can show that the main path went
 through the kernels and not through a plain version.  Importing this
@@ -48,14 +49,19 @@ def reset_counts() -> None:
         for plain in plains:
             plain.cuda_calls = 0
     block_matmul.transposed = 0
+    block_dw.tensor_core = 0
+    paged_prefill_attention.tensor_core = 0
 
 
 def counts() -> dict:
     """{name: {"launches": kernel launches, "plain_cuda_calls": calls of
     its plain versions on CUDA tensors}}; ``block_matmul`` also reports
-    how many of its launches were transposed."""
+    how many of its launches were transposed, ``block_dw`` and
+    ``paged_prefill`` how many ran their tensor-core body."""
     out = {name: {"launches": wrapper.launches,
                   "plain_cuda_calls": sum(p.cuda_calls for p in plains)}
            for name, (wrapper, plains, _) in KERNELS.items()}
     out["block_matmul"]["transposed"] = block_matmul.transposed
+    out["block_dw"]["tensor_core"] = block_dw.tensor_core
+    out["paged_prefill"]["tensor_core"] = paged_prefill_attention.tensor_core
     return out

@@ -136,6 +136,12 @@ def check(rc: int, what: str) -> None:
                            f"(cudaGetLastError)")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data does not start on the 16-byte
+    boundary that the kernels' 16-byte copies (``cp.async``) need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def require_cuda(t: torch.Tensor, what: str) -> None:
     if not t.is_cuda:
         raise ValueError(f"{what}: tensor on {t.device}; the kernel takes "

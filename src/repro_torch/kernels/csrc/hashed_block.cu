@@ -29,13 +29,26 @@
 //
 // block_dw replaces _block_dw_kernel (block_dw): dbank[b] = sum over the
 // virtual tiles t with idx(t) = b of sigma(t) * (x^T g)[tile t].  The
-// TPU walks virtual tiles sorted by bank index (a stable argsort) and
-// revisits the output tile with store-then-add.  Here one block owns a
-// 64 x 64 piece of one bank tile, walks that bank tile's virtual tiles
-// in the same sorted order, sums sigma * x^T g over all M rows in
-// registers and writes once: deterministic, no atomics, and a bank tile
-// no virtual tile maps to gets zeros.  Bound: 2 M R C flops on the fp32
-// CUDA cores.
+// TPU walks virtual tiles sorted by bank index (a stable argsort),
+// takes each x^T g as a bf16 dot with fp32 sums, and revisits the
+// output tile with store-then-add.  Here every bank tile's chain (its
+// virtual tiles in the same sorted order) is summed in a fixed order
+// and written once: deterministic, no atomics, and a bank tile no
+// virtual tile maps to gets zeros.  Same work and operand bytes as one
+// hashed GEMM of the shape (2 M R C flops), so the tensor cores bound it.
+//
+// - bf16 (tile rows and columns multiples of 8): tile_gemm.cuh tc_xtg,
+//   wgmma.m64n128k16 with bf16 operands and fp32 sums (the TPU kernel's
+//   own arithmetic: a bf16 x bf16 product is exact in fp32, only the
+//   summation order differs).  One block multiplies one piece of one
+//   bank tile's chain (virtual tile x 64-row step of M) into a 128 x 128
+//   output tile; the wrapper's plan (kernels/hashed_matmul.py
+//   block_dw_plan) cuts every chain into the same number of pieces so
+//   that enough blocks fill the 132 SMs, and splitk_reduce adds the
+//   pieces' fp32 partials in split order.
+// - fp32, or tile shapes the tensor-core body does not take: one block
+//   owns a 64 x 64 piece of one bank tile and sums sigma * x^T g over all
+//   M rows in registers on the CUDA cores (xtg_accumulate).
 #include "tile_gemm.cuh"
 
 namespace {
@@ -214,13 +227,28 @@ extern "C" int hashed_block_matmul(const void* x, const void* bank,
 
 // x (M, R), g (M, C) of dtype; order int32 (gi * gj) linear virtual tile
 // indices stably sorted by bank tile; offsets int32 (bank_tiles + 1);
-// sgn int32 (gi * gj); dbank fp32 (bank_tiles, brow, bcol).
+// sgn int32 (gi * gj); heavy int32 (bank_tiles) bank tiles by descending
+// chain length; dbank fp32 (bank_tiles, brow, bcol).  tensor_core 1 runs
+// tc_xtg (bf16; brow, bcol multiples of 8) cutting each chain into
+// `splits` pieces, with ws fp32 (splits, bank_tiles, brow, bcol) when
+// splits > 1; 0 the CUDA-core body.
 extern "C" int hashed_block_dw(const void* x, const void* g,
                                const void* order, const void* offsets,
-                               const void* sgn, void* dbank, int M, int R,
-                               int C, int brow, int bcol, int gj,
-                               int bank_tiles, int dtype, void* stream) {
+                               const void* sgn, const void* heavy,
+                               void* dbank, void* ws, int M, int R, int C,
+                               int brow, int bcol, int gj, int bank_tiles,
+                               int dtype, int tensor_core, int splits,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (tensor_core) {
+    if (dtype != 1 || brow % 8 || bcol % 8 || splits < 1 ||
+        (splits > 1 && ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return (int)rt::launch_tc_xtg(
+        x, g, (const int*)order, (const int*)offsets, (const int*)sgn,
+        (const int*)heavy, (float*)dbank, (float*)ws, M, R, C, brow, bcol,
+        gj, bank_tiles, splits, s);
+  }
   dim3 grid((bcol + rt::XTG_T - 1) / rt::XTG_T,
             (brow + rt::XTG_T - 1) / rt::XTG_T, bank_tiles);
   if (dtype == 1)

@@ -45,8 +45,14 @@
 // them in split order, so the result does not depend on scheduling and
 // no float atomics are used.
 //
+// tc_xtg — bf16 block_dw: x^T g on the tensor cores, contracting over M,
+// summed over a bank tile's chain of virtual tiles in the same ring and
+// wgmma pipeline as tc_gemm (tc_mainloop); both operands MN-major; the
+// pieces of a chain added in split order by splitk_reduce.
+//
 // xtg_accumulate: one 64 x 64 tile of x^T g (x (M, R), g (M, C)) summed
-// over all M rows into registers, the product both dw kernels need.
+// over all M rows into registers on the CUDA cores, the product the
+// element dw kernel and fp32 block_dw need.
 #pragma once
 #include "common.cuh"
 
@@ -174,24 +180,6 @@ constexpr int TC_CHUNKS = TC_BM * TC_BK / 8 / TC_NT;   // 16-byte chunks a
                                                        // thread copies per
                                                        // operand and stage
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte cp.async; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets in 16-byte units.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
@@ -201,8 +189,8 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 }
 
 // d (64 x 128 fp32, 64 registers a thread) += A (64 x 16) B (16 x 128);
-// A K-major; B K-major (TRANS_B 0) or MN-major (TRANS_B 1).
-template <int TRANS_B>
+// A K-major (TRANS_A 0) or MN-major (TRANS_A 1), B likewise with TRANS_B.
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -216,7 +204,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -233,7 +221,68 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+// Descriptors of one k16 step: A and B.
+struct TcStep {
+  uint64_t a, b;
+};
+
+// The K loop of both tensor-core bodies, on the 4-slot ring at `base`:
+// load(kt, slot) issues this thread's cp.async copies of K tile kt into
+// a slot; land(kt, slot) runs once they have landed, before any wgmma
+// reads the slot (this thread may rewrite its own chunks);
+// step(stage, kk) names the descriptors of the kk-th k16 step of the
+// slot at address `stage`.  While tile kt is multiplied, tile kt - 1's
+// wgmma group may still run and tiles kt + 1 and kt + 2 are in flight.
+// Returns with every wgmma finished and acc readable.
+template <int TRANS_A, int TRANS_B, class Load, class Land, class Step>
+__device__ __forceinline__ void tc_mainloop(float (&acc)[64], int nk,
+                                            uint32_t base, const Load& load,
+                                            const Land& land,
+                                            const Step& step) {
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 2; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % TC_STAGES;
+    cp_async_wait<TC_STAGES - 3>();          // this thread's tile kt landed
+    land(kt, slot);
+    // its cp.async writes (generic proxy) before wgmma reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t stage = base + slot * TC_STAGE;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const TcStep d = step(stage, kk);
+      wgmma_m64n128k16<TRANS_A, TRANS_B>(acc, d.a, d.b);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    {  // every warpgroup has finished tile kt - 2's wgmma group (it waited
+       // for all but its newest group before the barrier above), so that
+       // slot is refilled while this tile's group runs
+      const int nt = kt + TC_STAGES - 2;
+      if (nt < nk) load(nt, nt % TC_STAGES);
+      cp_async_commit();
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < 64; ++r)     // keep accumulator reads after the wait
+    asm volatile("" : "+f"(acc[r])::"memory");
+}
+
+// Shared-memory offset of 16-byte chunk `ch` (0..15) of row `r` of a
+// 128-column MN-major bf16 tile (two 64-column swizzle atoms of TC_BK
+// rows, TC_BK * 128 bytes apart).
+__device__ __forceinline__ uint32_t mn_major_off(int r, int ch) {
+  return (ch >> 3) * (TC_BK * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
 }
 
 // y = x @ Vop on the tensor cores: x bf16 (M, K) row-major, V bf16
@@ -296,51 +345,20 @@ tc_gemm(const __nv_bfloat16* __restrict__ x,
         i = k0 + r;
         j = n0 + nc * 8;
         ok = i < kend && j < N;
-        dst = sb + (nc >> 3) * (TC_BK * 128) + r * 128 +
-              (((nc & 7) ^ (r & 7)) << 4);
+        dst = sb + mn_major_off(r, nc);
       }
       cp_async16(dst, ok ? v + (long long)i * ld + j : v, ok);
     }
   };
-
-#pragma unroll
-  for (int s = 0; s < TC_STAGES - 2; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int slot = kt % TC_STAGES;
-    cp_async_wait<TC_STAGES - 3>();          // this thread's tile kt landed
-    // its cp.async writes (generic proxy) before wgmma reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const uint32_t sa = base + slot * TC_STAGE + wg * (64 * 128);
-    const uint32_t sb = base + slot * TC_STAGE + TC_OPERAND;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const uint64_t da = gmma_desc(sa + kk * 32, 16, 1024);
-      if (TRANS)
-        wgmma_m64n128k16<0>(acc, da, gmma_desc(sb + kk * 32, 16, 1024));
-      else   // MN-major: atoms of 64 columns TC_BK * 128 bytes apart
-        wgmma_m64n128k16<1>(acc, da, gmma_desc(sb + kk * 2048,
-                                               TC_BK * 128, 1024));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    {  // every warpgroup has finished tile kt - 2's wgmma group (it waited
-       // for all but its newest group before the barrier above), so that
-       // slot is refilled while this tile's group runs
-      const int nt = kt + TC_STAGES - 2;
-      if (nt < nk) load(nt, nt % TC_STAGES);
-      cp_async_commit();
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int r = 0; r < 64; ++r)     // keep accumulator reads after the wait
-    asm volatile("" : "+f"(acc[r])::"memory");
+  // x K-major, this warpgroup's 64 rows; V K-major (transpose) or
+  // MN-major (forward: atoms of 64 columns TC_BK * 128 bytes apart)
+  auto step = [&](uint32_t stage, int kk) {
+    const uint32_t sb = stage + TC_OPERAND;
+    return TcStep{gmma_desc(stage + wg * (64 * 128) + kk * 32, 16, 1024),
+                  TRANS ? gmma_desc(sb + kk * 32, 16, 1024)
+                        : gmma_desc(sb + kk * 2048, TC_BK * 128, 1024)};
+  };
+  tc_mainloop<0, TRANS ? 0 : 1>(acc, nk, base, load, [](int, int) {}, step);
 
   // accumulator fragment: register r of lane l in warp w of the
   // warpgroup holds row 16 w + l / 4 + 8 ((r / 2) % 2), column
@@ -391,7 +409,181 @@ cudaError_t launch_tc_gemm(const void* x, const void* v, void* y, float* ws,
 }
 
 // ---------------------------------------------------------------------------
-// x^T g tiles for the dw kernels
+// tensor-core x^T g over a bank tile's chain of virtual tiles (block_dw)
+// ---------------------------------------------------------------------------
+
+// out (128 x 128 piece of bank tile b) = sum over b's chain of sigma(t) *
+// x[:, tile t's rows]^T g[:, tile t's columns], fp32.
+//
+// The chain of bank tile b is its virtual tiles in `order` (positions
+// offsets[b] .. offsets[b + 1], the JAX kernel's stable-argsort order)
+// times M in steps of TC_BK rows: K tile q is virtual tile q / nm, rows
+// 64 (q % nm) ...  It is cut into `splits` pieces of equal length; a
+// block multiplies one piece into one 128 x 128 output tile (two
+// warpgroups of 64 bank-tile rows) and writes its fp32 sum to
+// out + split * split_stride: dbank itself for one piece, else an fp32
+// workspace that splitk_reduce adds up in split order.  No atomics,
+// same bits on every launch.  (Adding the pieces of a tile through a
+// thread block cluster's distributed shared memory instead, with no
+// workspace, was built and timed slower on the card at ffn.out and
+// attn.q: a cluster's blocks must be resident together, so the pieces
+// cannot fill the SMs as freely; PERF.md.)
+//
+// Both operands are MN-major in global memory (x^T has its bank-tile row
+// r contiguous, g its column c), so both are staged like tc_gemm's
+// forward V: rows of 64 m, 128 columns in two swizzle atoms, and both
+// descriptors take wgmma's transpose bit.  A virtual tile of sign -1 has
+// the sign bits of its staged g chunks flipped by the threads that
+// copied them, once they land (exact; no branch around the wgmmas).
+// Rows past M and bank-tile rows or columns past the tile read zeros.
+// The loader walks its piece incrementally: one lookup of `order` and
+// `sgn` per virtual tile, none per K tile.  Blocks run the bank tiles in
+// `heavy` order (longest chain first), so the longest pieces start in
+// the first wave.  Needs brow, bcol, R and C multiples of 8 (16-byte
+// chunks inside one tile row).
+__global__ void __launch_bounds__(TC_NT)
+tc_xtg(const __nv_bfloat16* __restrict__ x,
+       const __nv_bfloat16* __restrict__ g, const int* __restrict__ order,
+       const int* __restrict__ offsets, const int* __restrict__ sgn,
+       const int* __restrict__ heavy, float* __restrict__ out,
+       long long split_stride, int M, int R, int C, int brow, int bcol,
+       int gj, int splits) {
+  extern __shared__ uint8_t tc_smem_raw[];
+  const uint32_t raw = smem_u32(tc_smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int nrb = (brow + TC_BM - 1) / TC_BM, ncb = (bcol + TC_BN - 1) / TC_BN;
+  // blockIdx.x = ((tile rank * nrb + rb) * ncb + cb) * splits + split
+  const int split = blockIdx.x % splits;
+  const int piece = blockIdx.x / splits;
+  const int b = heavy[piece / (nrb * ncb)];
+  const int pr0 = piece / ncb % nrb * TC_BM, pc0 = piece % ncb * TC_BN;
+  const int rlim = min(TC_BM, brow - pr0), clim = min(TC_BN, bcol - pc0);
+
+  const int nm = (M + TC_BK - 1) / TC_BK;
+  const int chain = offsets[b], chain_end = offsets[b + 1];
+  const int len = (chain_end - chain) * nm;
+  const int per_piece = (len + splits - 1) / splits;
+  const int q0 = min(len, split * per_piece);
+  const int nk = min(len, q0 + per_piece) - q0;
+
+  float acc[64];
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+
+  // loader state: the next K tile to stage is rows 64 lm ... of the
+  // virtual tile at chain position li (loads come in K-tile order)
+  int li = chain + q0 / nm, lm = q0 % nm;
+  const __nv_bfloat16* xs = x;
+  const __nv_bfloat16* gs = g;
+  bool neg = false;
+  uint32_t negs = 0;                // bit s: ring slot s holds a -1 tile
+  auto seek = [&]() {
+    const int t = order[li];
+    xs = x + (t / gj) * brow + pr0;
+    gs = g + (t % gj) * bcol + pc0;
+    neg = sgn[t] < 0;
+  };
+  if (nk > 0) seek();
+  auto chunk = [&](int k, int* r, int* ch) {
+    const int c = tid + k * TC_NT;
+    *r = c >> 4;
+    *ch = c & 15;
+  };
+  // one K tile: 64 rows m of x (bank-tile rows r) and of g (bank-tile
+  // columns c), TC_CHUNKS 16-byte chunks of each per thread
+  auto load = [&](int, int slot) {
+    const int m0 = lm * TC_BK;
+    const uint32_t sa = base + slot * TC_STAGE;
+    const uint32_t sb = sa + TC_OPERAND;
+    negs = (negs & ~(1u << slot)) | ((uint32_t)neg << slot);
+#pragma unroll
+    for (int k = 0; k < TC_CHUNKS; ++k) {
+      int r, ch;
+      chunk(k, &r, &ch);
+      const int gm = m0 + r;
+      const bool okx = gm < M && ch * 8 < rlim;
+      const bool okg = gm < M && ch * 8 < clim;
+      cp_async16(sa + mn_major_off(r, ch),
+                 okx ? xs + (long long)gm * R + ch * 8 : x, okx);
+      cp_async16(sb + mn_major_off(r, ch),
+                 okg ? gs + (long long)gm * C + ch * 8 : g, okg);
+    }
+    if (++lm == nm) {
+      lm = 0;
+      if (++li < chain_end) seek();
+    }
+  };
+  auto land = [&](int, int slot) {
+    if (!((negs >> slot) & 1u)) return;
+    uint8_t* sb = tc_smem_raw + (base - raw) + slot * TC_STAGE + TC_OPERAND;
+#pragma unroll
+    for (int k = 0; k < TC_CHUNKS; ++k) {
+      int r, ch;
+      chunk(k, &r, &ch);
+      uint4* u = reinterpret_cast<uint4*>(sb + mn_major_off(r, ch));
+      uint4 v = *u;
+      v.x ^= 0x80008000u; v.y ^= 0x80008000u;
+      v.z ^= 0x80008000u; v.w ^= 0x80008000u;
+      *u = v;
+    }
+  };
+  // A = this warpgroup's 64 bank-tile rows (one swizzle atom), B = all
+  // 128 columns; a k16 step is 16 rows m, 2 KB into each atom
+  auto step = [&](uint32_t stage, int kk) {
+    return TcStep{gmma_desc(stage + wg * (TC_BK * 128) + kk * 2048,
+                            TC_BK * 128, 1024),
+                  gmma_desc(stage + TC_OPERAND + kk * 2048, TC_BK * 128,
+                            1024)};
+  };
+  tc_mainloop<1, 1>(acc, nk, base, load, land, step);
+
+  // accumulator fragment as in tc_gemm: rows are bank-tile rows r,
+  // columns bank-tile columns c
+  const int lane = tid & 31;
+  const int row0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  float* o = out + split * split_stride + (long long)b * brow * bcol;
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const int col = p * 8 + (lane & 3) * 2;
+    if (col >= clim) continue;            // clim % 8 == 0: col + 1 too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= rlim) continue;
+      *reinterpret_cast<float2*>(o + (long long)(pr0 + row) * bcol + pc0 +
+                                 col) =
+          make_float2(acc[p * 4 + h * 2], acc[p * 4 + h * 2 + 1]);
+    }
+  }
+}
+
+// Launch tc_xtg over every (bank tile, 128 x 128 piece, split) and, when
+// splits > 1, reduce ws (splits, bank_tiles, brow, bcol) into dbank.
+inline cudaError_t launch_tc_xtg(const void* x, const void* g,
+                                 const int* order, const int* offsets,
+                                 const int* sgn, const int* heavy,
+                                 float* dbank, float* ws, int M, int R, int C,
+                                 int brow, int bcol, int gj, int bank_tiles,
+                                 int splits, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      tc_xtg, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int nrb = (brow + TC_BM - 1) / TC_BM, ncb = (bcol + TC_BN - 1) / TC_BN;
+  const long long elems = (long long)bank_tiles * brow * bcol;
+  tc_xtg<<<(unsigned)(bank_tiles * nrb * ncb * splits), TC_NT, TC_SMEM,
+           stream>>>((const __nv_bfloat16*)x, (const __nv_bfloat16*)g, order,
+                     offsets, sgn, heavy, splits > 1 ? ws : dbank, elems, M,
+                     R, C, brow, bcol, gj, splits);
+  if (splits > 1)
+    launch_reduce<float>(ws, dbank, bank_tiles, brow * bcol, splits, stream);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// x^T g tiles for the dw kernels (CUDA cores)
 // ---------------------------------------------------------------------------
 
 constexpr int XTG_T = 64;    // output tile edge

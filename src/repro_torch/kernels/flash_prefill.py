@@ -3,15 +3,16 @@ dispatch, attending its own paged prefix.
 
 Kernel: ``csrc/flash_prefill.cu`` (CUDA C++, sm_90a).  It replaces the
 JAX package's ``kernels/flash_prefill.py`` ``_prefill_kernel`` /
-``paged_prefill_attention``.  One block per (32-row query tile, kv head,
-row) walks just the pages its tile can see, staging each page's K and V
-in shared memory once for all 32 query rows (the G query heads of one kv
-head times 32/G slots), with an online softmax.  At prefill sizes the
-score and value products bound the work; this first version runs them in
-fp32 on the CUDA cores from shared memory, so shared-memory bandwidth
-bounds it (tensor cores are later work).  Slot ``s`` of row ``b`` sits at
-position ``starts[b] + s``; slots at or past ``counts[b]`` and rows with
-``counts == 0`` give zeros.
+``paged_prefill_attention``.  One block per (query tile, kv head, row)
+walks just the positions its tile can see, staging K and V once for the
+G query heads of one kv head (GQA without repeating K/V), with an online
+softmax.  bf16 (the serving path) runs FlashAttention-2 on the tensor
+cores: 64 query rows a block, one warp per 16, ``mma.sync`` with bf16
+operands and fp32 accumulators for both ``Q K^T`` and ``P V`` (the
+probabilities rounded to bf16), K/V copied by ``cp.async`` into a double
+buffer.  fp32 keeps the CUDA-core version (full fp32 products, 32 rows a
+block).  Slot ``s`` of row ``b`` sits at position ``starts[b] + s``;
+slots at or past ``counts[b]`` and rows with ``counts == 0`` give zeros.
 
 The plain version :func:`paged_prefill_ref` (the port of the JAX
 package's ``kernels/ref.py`` ``paged_prefill_ref``) gathers the table
@@ -102,10 +103,13 @@ def paged_prefill_attention(q, pages_k, pages_v, page_table, starts, counts,
             or pages_v.dtype != q.dtype:
         raise ValueError("paged_prefill_attention: q and pages must share "
                          "dtype float32 or bfloat16")
-    q = q.contiguous()
+    q = _build.aligned16(q.contiguous())
     if not (pages_k.is_contiguous() and pages_v.is_contiguous()):
         raise ValueError("paged_prefill_attention: page pools must be "
                          "contiguous")
+    if pages_k.data_ptr() % 16 or pages_v.data_ptr() % 16:
+        raise ValueError("paged_prefill_attention: page pools must start "
+                         "on a 16-byte boundary")
     dev = q.device
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     st = starts.to(device=dev, dtype=torch.int32).contiguous()
@@ -120,7 +124,10 @@ def paged_prefill_attention(q, pages_k, pages_v, page_table, starts, counts,
             int(window), _build.DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check(rc, "paged_prefill")
     paged_prefill_attention.launches += 1
+    # the library runs the tensor-core kernel for bf16, CUDA cores for fp32
+    paged_prefill_attention.tensor_core += int(q.dtype == torch.bfloat16)
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.tensor_core = 0

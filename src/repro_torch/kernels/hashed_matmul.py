@@ -41,6 +41,13 @@ atomics anywhere.  Both ``dw`` kernels sum each bucket or bank tile in a
 fixed order over a static map of the virtual positions that hash to it,
 built once per spec on the device and cached here.
 
+``block_dw`` runs one of two bodies too, chosen by
+:func:`block_dw_plan`: bf16 takes ``x^T g`` on the tensor cores
+(``wgmma``, bf16 operands, fp32 sums, as the TPU kernel's dot with
+``preferred_element_type=float32``), each bank tile's chain of virtual
+tiles cut into a fixed number of pieces whose fp32 partials are added in
+order; fp32 keeps the CUDA-core body.
+
 The plain versions are the ports of the JAX package's ``kernels/ref.py``
 oracles (``hashed_matmul_ref``, ``hashed_matmul_t_ref``,
 ``hashed_dw_ref``): they materialize V in fp32 and take either mode.
@@ -165,15 +172,20 @@ def element_segments(spec: H.HashedSpec, device):
 
 
 def block_tables(spec: H.HashedSpec, device):
-    """(idx, sgn, order, offsets), int32 on ``device``, cached: the
-    row-major (gi, gj) tile -> bank map and tile signs, and the virtual
-    tiles grouped by bank tile in the JAX kernel's stable-argsort order."""
+    """(idx, sgn, order, offsets, heavy), int32 on ``device``, cached: the
+    row-major (gi, gj) tile -> bank map and tile signs, the virtual tiles
+    grouped by bank tile in the JAX kernel's stable-argsort order, and
+    the bank tiles by descending chain length (``block_dw`` launches the
+    longest chains first)."""
     key = ("block", spec, str(device))
     if key not in _MAPS:
         idx, sgn = H.block_indices(spec, device)
         idx = idx.reshape(-1)
+        order, offsets = _segments(idx, spec.bank_tiles)
+        heavy = torch.argsort(offsets[1:] - offsets[:-1], descending=True,
+                              stable=True).to(torch.int32)
         _MAPS[key] = (idx.to(torch.int32), sgn.reshape(-1).to(torch.int32),
-                      *_segments(idx, spec.bank_tiles))
+                      order, offsets, heavy)
     return _MAPS[key]
 
 
@@ -281,12 +293,6 @@ def _grad_rows(what: str, x: torch.Tensor, g: torch.Tensor,
     return g
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a fresh copy when its data does not start on the 16-byte
-    boundary the tensor-core body's copies need."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _gemm_out(x: torch.Tensor, n: int, plan: GemmPlan):
     """Output, split-K workspace and V workspace of a (M, K) @ (K, n)
     kernel GEMM run by ``plan``, sized from the operands (a plan may have
@@ -313,7 +319,7 @@ def _element_gemm(x, w, spec, transpose: bool,
                          f"{spec.num_buckets}")
     plan = plan or gemm_plan(x.shape[0], k, n, "element", x.dtype)
     if plan.body == "tensor_core":
-        x = _aligned(x)
+        x = _build.aligned16(x)
     y, ws, vws = _gemm_out(x, n, plan)
     fn = _build.bind("hashed_matmul", "hashed_element_matmul",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
@@ -407,12 +413,12 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
     if tuple(w.shape) != spec.real_param_shape():
         raise ValueError(f"bank {tuple(w.shape)}, spec wants "
                          f"{spec.real_param_shape()}")
-    idx, sgn, _, _ = block_tables(spec, x.device)
+    idx, sgn, *_ = block_tables(spec, x.device)
     brow, bcol = spec.block_shape
     plan = plan or gemm_plan(x.shape[0], k, n, "block", x.dtype,
                              block_cols=bcol)
     if plan.body == "tensor_core":
-        x, w = _aligned(x), _aligned(w)
+        x, w = _build.aligned16(x), _build.aligned16(w)
     y, ws, vws = _gemm_out(x, n, plan)
     fn = _build.bind("hashed_block", "hashed_block_matmul",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
@@ -428,28 +434,110 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
     return y if out_dtype == x.dtype else y.to(out_dtype)
 
 
-def block_dw(x: torch.Tensor, g: torch.Tensor,
-             spec: H.HashedSpec) -> torch.Tensor:
+@dataclass(frozen=True)
+class BlockDwPlan:
+    """How one ``block_dw`` runs: ``body`` ("tensor_core" or
+    "cuda_core"), the number of pieces (``splits``) each bank tile's
+    chain of (virtual tile, 64-row step of M) products is cut into, and
+    the fp32 partials' workspace (``splits x bank_tiles x brow x bcol x
+    4`` bytes when ``splits > 1``) the wrapper allocates for the call."""
+    body: str
+    splits: int
+    workspace_bytes: int
+
+
+DW_TILE = 128       # tensor-core block_dw: output tile edge ...
+DW_STEP = 64        # ... and rows of M per K tile
+DW_WAVES = 4        # at most this many waves of blocks over the SMs ...
+DW_MIN_STEPS = 16   # ... and no piece under this many K tiles on average
+
+
+def block_dw_ok(m: int, block_shape, dtype) -> bool:
+    """Whether the tensor-core ``block_dw`` takes this product: bf16, and
+    bank tiles whose rows and columns hold whole 16-byte chunks."""
+    brow, bcol = block_shape
+    return dtype == torch.bfloat16 and m > 0 and brow % 8 == 0 \
+        and bcol % 8 == 0
+
+
+def block_dw_plan(m: int, spec: H.HashedSpec, dtype=torch.bfloat16, *,
+                  body: Optional[str] = None,
+                  splits: Optional[int] = None) -> BlockDwPlan:
+    """The plan of ``block_dw`` on x (m, rows) and g (m, cols) of a
+    block-mode ``spec``.  ``body`` and ``splits`` force a choice
+    (chip_smoke times them); by default bf16 takes the tensor cores when
+    :func:`block_dw_ok`, and the splits double while the (bank tile,
+    piece, 128 x 128 output tile) blocks stay within ``DW_WAVES`` waves
+    over the card's SMs and a piece keeps at least ``DW_MIN_STEPS`` K
+    tiles of the mean chain (virtual tiles per bank tile x 64-row steps
+    of M): the chains differ in length, so the longest run first and
+    more, shorter pieces even the waves out, while every piece adds a
+    pipeline fill and an fp32 partial of its tile to write and reduce.
+    Both limits come from H100 timings of 1 to 16 splits at qwen3-1.7b's
+    ``attn.q``, ``attn.k`` and ``ffn.out`` (PERF.md)."""
+    if spec.mode != "block":
+        raise ValueError("block_dw_plan takes block-mode specs")
+    tc = block_dw_ok(m, spec.block_shape, dtype)
+    if body is None:
+        body = "tensor_core" if tc else "cuda_core"
+    elif body == "tensor_core" and not tc:
+        raise ValueError(f"the tensor-core block_dw takes bf16 with bank "
+                         f"tile rows and columns multiples of 8; got m={m} "
+                         f"{dtype} block_shape={spec.block_shape}")
+    elif body not in _TILES:
+        raise ValueError(f"body {body!r}")
+    if body == "cuda_core":
+        if splits not in (None, 1):
+            raise ValueError("the CUDA-core block_dw does not split")
+        return BlockDwPlan(body, 1, 0)
+    brow, bcol = spec.block_shape
+    gi, gj = spec.tile_grid
+    blocks = spec.bank_tiles * -(-brow // DW_TILE) * -(-bcol // DW_TILE)
+    mean_steps = gi * gj * -(-m // DW_STEP) / spec.bank_tiles
+    if splits is None:
+        splits = 1
+        while blocks * splits * 2 <= DW_WAVES * _SMS \
+                and mean_steps / (splits * 2) >= DW_MIN_STEPS:
+            splits *= 2
+    elif splits < 1:
+        raise ValueError(f"splits {splits}")
+    return BlockDwPlan(body, splits, splits * spec.bank_tiles * brow * bcol
+                       * 4 if splits > 1 else 0)
+
+
+def block_dw(x: torch.Tensor, g: torch.Tensor, spec: H.HashedSpec, *,
+             plan: Optional[BlockDwPlan] = None) -> torch.Tensor:
     """dbank (bank_tiles, brow, bcol) fp32 from x (M, R) and the upstream
-    grad g (M, C) of y = x @ V, block mode."""
+    grad g (M, C) of y = x @ V, block mode; ``plan`` (default
+    :func:`block_dw_plan`) picks the body and the split count."""
     if x.device.type == "cpu":
         return hashed_dw_ref(x, g, spec)
     _check_block_grid("block_dw", spec)
     _check("block_dw", x, spec.rows)
     g = _grad_rows("block_dw", x, g, spec.cols)
-    _, sgn, order, offsets = block_tables(spec, x.device)
+    _, sgn, order, offsets, heavy = block_tables(spec, x.device)
     brow, bcol = spec.block_shape
+    plan = plan or block_dw_plan(x.shape[0], spec, x.dtype)
+    tc = plan.body == "tensor_core"
+    if tc:
+        x, g = _build.aligned16(x), _build.aligned16(g)
     dbank = torch.empty((spec.bank_tiles, brow, bcol), dtype=torch.float32,
                         device=x.device)
+    ws = torch.empty((plan.splits, spec.bank_tiles, brow, bcol),
+                     dtype=torch.float32, device=x.device) \
+        if tc and plan.splits > 1 else None
     fn = _build.bind("hashed_block", "hashed_block_dw",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p])
     rc = fn(_build.ptr(x), _build.ptr(g), _build.ptr(order),
-            _build.ptr(offsets), _build.ptr(sgn), _build.ptr(dbank),
-            x.shape[0], spec.rows, spec.cols, brow, bcol, spec.tile_grid[1],
-            spec.bank_tiles, _build.DTYPE_CODE[x.dtype], _build.stream_of(x))
+            _build.ptr(offsets), _build.ptr(sgn), _build.ptr(heavy),
+            _build.ptr(dbank), _build.ptr(ws), x.shape[0], spec.rows,
+            spec.cols, brow, bcol, spec.tile_grid[1], spec.bank_tiles,
+            _build.DTYPE_CODE[x.dtype], int(tc), plan.splits,
+            _build.stream_of(x))
     _build.check(rc, "block_dw")
     block_dw.launches += 1
+    block_dw.tensor_core += int(tc)
     return dbank
 
 
@@ -457,3 +545,4 @@ for _kernel in (element_matmul, element_matmul_t, element_dw, block_matmul,
                 block_dw):
     _kernel.launches = 0
 block_matmul.transposed = 0
+block_dw.tensor_core = 0

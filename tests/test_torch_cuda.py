@@ -237,6 +237,71 @@ def test_cuda_block_dw_vs_plain_and_bitwise_repeatable(cuda_device,
     assert err <= 1e-5 * scale
 
 
+def _dw_case(cuda_device, shape, block_shape, m, use_sign=True):
+    """A block spec at compression 1/2 whose seed leaves bank tiles no
+    virtual tile maps to and chains that mix both signs, and bf16 x, g of
+    ``m`` rows."""
+    spec = TH.HashedSpec(virtual_shape=shape, compression=0.5, seed=0,
+                         mode="block", block_shape=block_shape,
+                         use_sign=use_sign)
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    x = torch.randn(m, shape[0], generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    gy = torch.randn(m, shape[1], generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    return spec, x, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 300, 1024])
+@pytest.mark.parametrize("shape,block_shape", [((768, 1152), (128, 128)),
+                                               ((336, 520), (48, 40))])
+@pytest.mark.parametrize("use_sign", [True, False])
+def test_cuda_block_dw_tensor_core_vs_plain(cuda_device, m, shape,
+                                            block_shape, use_sign):
+    """bf16 block_dw on the tensor cores (x^T g contracted over M; 300
+    rows end inside a 64-row step): 128 x 128 and 48 x 40 bank tiles,
+    chains of both signs (or all +1 without signs), bank tiles that no
+    virtual tile maps to give exact zeros; within 1e-5 x the largest
+    plain value (fp32 sums in another order) and bitwise equal to itself
+    across launches."""
+    spec, x, gy = _dw_case(cuda_device, shape, block_shape, m, use_sign)
+    _, sgn, _, offsets, _ = THK.block_tables(spec, cuda_device)
+    empty = offsets[1:] == offsets[:-1]
+    assert bool(empty.any())
+    assert bool((sgn < 0).any()) == use_sign and bool((sgn > 0).any())
+    assert THK.block_dw_plan(m, spec).body == "tensor_core"
+    before = THK.block_dw.launches, THK.block_dw.tensor_core
+    got = THK.block_dw(x, gy, spec)
+    assert (THK.block_dw.launches, THK.block_dw.tensor_core) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, THK.block_dw(x, gy, spec))
+    assert got[empty].abs().max().item() == 0.0
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,splits", [("tensor_core", 1),
+                                         ("tensor_core", 3),
+                                         ("tensor_core", 8),
+                                         ("cuda_core", 1)])
+def test_cuda_block_dw_forced_plans_vs_plain(cuda_device, body, splits):
+    """Forced plans at M = 300 on 128 x 128 tiles (chains of 1 to 6
+    virtual tiles x 5 row steps): one piece per chain, 3 (uneven
+    pieces), 8 (more pieces than the shortest chains have K tiles, so
+    some are empty), and the CUDA-core body on bf16; each within 1e-5 x
+    scale of the plain version and bitwise repeatable."""
+    spec, x, gy = _dw_case(cuda_device, (768, 1152), (128, 128), 300)
+    plan = THK.block_dw_plan(300, spec, body=body, splits=splits)
+    assert plan.workspace_bytes == (splits * spec.bank_tiles * 128 * 128 * 4
+                                    if splits > 1 else 0)
+    got = THK.block_dw(x, gy, spec, plan=plan)
+    assert torch.equal(got, THK.block_dw(x, gy, spec, plan=plan))
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["element", "block"])
 def test_cuda_autograd_function_vs_cpu(cuda_device, mode):
@@ -301,6 +366,48 @@ def test_cuda_paged_prefill_vs_plain(cuda_device, window):
     assert (got - want).abs().max().item() \
         <= 1e-5 * want.abs().max().item()
     assert got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("window", [0, 20])
+def test_cuda_paged_prefill_tensor_core_vs_plain(cuda_device, group,
+                                                 head_dim, window):
+    """bf16 prefill on the tensor cores, page size 16: a row starting in
+    the middle of a page whose positions span two steps of 64 (32 at
+    head_dim 256), a count-0 row, a row with pad slots that shares a
+    prefix page, a row from position 0; within 1e-2 x the largest plain
+    value (the probabilities are rounded to bf16 for P V) and exact
+    zeros in the count-0 row and the pad slots."""
+    g = torch.Generator(device=cuda_device).manual_seed(group * head_dim
+                                                        + window)
+    n_kv, s = 2, 40
+    pk = torch.randn(40, 16, n_kv, head_dim, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    pv = torch.randn(40, 16, n_kv, head_dim, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    table = torch.tensor([[1, 2, 3, 4, 5, 6, 7, 8], [0] * 8,
+                          [1, 9, 10, 11, 0, 0, 0, 0],
+                          [12, 13, 14, 0, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=cuda_device)
+    starts = torch.tensor([70, 0, 16, 0], dtype=torch.int32,
+                          device=cuda_device)
+    counts = torch.tensor([40, 0, 23, 33], dtype=torch.int32,
+                          device=cuda_device)
+    q = torch.randn(4, s, n_kv * group, head_dim, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    before = TFP.paged_prefill_attention.launches
+    got = TFP.paged_prefill_attention(q, pk, pv, table, starts, counts,
+                                      window)
+    assert TFP.paged_prefill_attention.launches == before + 1
+    want = TFP.paged_prefill_ref(q, pk, pv, table, starts, counts, window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err, scale = _max_err(got, want)
+    assert err <= 1e-2 * scale
+    assert got[1].abs().max().item() == 0.0
+    assert got[2, 23:].abs().max().item() == 0.0
+    assert got[3, 33:].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda

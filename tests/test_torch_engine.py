@@ -2,8 +2,9 @@
 
 On the request shapes of ``benchmarks/serving_bench.py`` ``_requests``,
 the port's ``Engine(device="cpu")`` must give greedy tokens identical to
-the JAX ``Engine`` for ``qwen3-reduced-dense`` and
-``qwen3-reduced-hashed``, with equal deterministic counters (prefill
+the JAX ``Engine`` for ``qwen3-reduced-dense``, ``qwen3-reduced-hashed``
+and the same hashed at 1/8 in block mode (32 x 32 tiles,
+``qwen3-reduced-block``), with equal deterministic counters (prefill
 batch dispatches and rows, fallback chunks, preemptions, prefix hits).
 Sampled rows are held to the JAX ``sample_tokens`` fed the JAX package's
 own Gumbel field.  Batch invariance: batched and one-row-per-dispatch
@@ -47,13 +48,18 @@ def _two_torch_threads():
     torch.set_num_threads(old)
 
 
-@pytest.fixture(scope="module", params=[False, True],
-                ids=["qwen3-reduced-dense", "qwen3-reduced-hashed"])
+@pytest.fixture(scope="module", params=["dense", "element", "block"],
+                ids=["qwen3-reduced-dense", "qwen3-reduced-hashed",
+                     "qwen3-reduced-block"])
 def models(request):
     jc = jreduced(JC.get("qwen3-1.7b")).with_(dtype="float32")
     tc = TC.reduced(TC.get("qwen3-1.7b")).with_(dtype="float32")
-    if request.param:
+    if request.param == "element":
         jc, tc = jc.hashed_variant(0.125), tc.hashed_variant(0.125)
+    elif request.param == "block":
+        # (32, 32) tiles divide every reduced shape (64, 32, 128)
+        jc = jc.hashed_variant(0.125, mode="block").with_(hash_block=(32, 32))
+        tc = tc.hashed_variant(0.125, mode="block").with_(hash_block=(32, 32))
     jm = jbuild(jc)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, device="cpu")

@@ -1,6 +1,7 @@
 """The hashed GEMM's plan: which body runs a product, with which tiles,
 split count and transient workspaces (``kernels/hashed_matmul.py``
-``gemm_plan``).
+``gemm_plan``), and ``block_dw``'s (``block_dw_plan``: body, pieces a
+chain, fp32 workspace).
 
 The plan is pure Python, so these tests run without a card: bf16
 products of more than 8 rows take the tensor-core body (128 x 128 x 64
@@ -152,3 +153,159 @@ def test_plan_is_ignored_on_the_cpu(mode):
     fn = THK.element_matmul if mode == "element" else THK.block_matmul
     assert torch.equal(fn(x, w, spec, plan=plan),
                        THK.hashed_matmul_ref(x, w, spec))
+
+
+# ---------------------------------------------------------------------------
+# block_dw: which body, how many pieces a bank tile's chain is cut into
+# ---------------------------------------------------------------------------
+
+def _block_specs():
+    """qwen3-1.7b's projections hashed by a block-mode policy (128 x 128
+    tiles, 1/8): specs only, no weights."""
+    import repro_torch.configs as TC
+    from repro_torch import policy
+    from repro_torch.models.transformer import bank_spec_map
+    cfg = TC.get("qwen3-1.7b").policy_variant(policy.CompressionPolicy(
+        mode="block", block_shape=(128, 128), path="pallas"))
+    return {path[-2]: spec for path, spec in bank_spec_map(cfg).items()}
+
+
+# projection -> (bank tiles, splits at M = 1024)
+DW_SPLITS = {"q": (32, 8), "k": (16, 8), "v": (16, 8), "o": (32, 8),
+             "gate": (96, 4), "in": (96, 4), "out": (96, 4)}
+
+
+@pytest.mark.parametrize("proj", sorted(DW_SPLITS))
+def test_block_dw_plan_at_qwen3_projections(proj):
+    """Every bf16 projection of a training step (M = 1024) takes the
+    tensor cores; the splits are the most that keep the blocks within
+    four waves over the SMs and each piece at least 16 K tiles of the
+    mean chain (a wave nearly full at attn.k/v, 128 blocks); the
+    workspace holds one fp32 bank per split."""
+    spec = _block_specs()[proj]
+    tiles, splits = DW_SPLITS[proj]
+    assert spec.bank_tiles == tiles and spec.block_shape == (128, 128)
+    plan = THK.block_dw_plan(1024, spec, torch.bfloat16)
+    assert plan.body == "tensor_core" and plan.splits == splits
+    assert plan.workspace_bytes == splits * tiles * 128 * 128 * 4
+    gi, gj = spec.tile_grid
+    steps = gi * gj * (1024 // 64) / tiles      # mean chain, K tiles
+    assert 128 <= tiles * splits <= THK.DW_WAVES * SMS
+    assert steps / splits >= THK.DW_MIN_STEPS
+    assert tiles * splits * 2 > THK.DW_WAVES * SMS \
+        or steps / (splits * 2) < THK.DW_MIN_STEPS
+
+
+def test_block_dw_plan_workspace_at_attn_q_and_ffn_out():
+    specs = _block_specs()
+    assert THK.block_dw_plan(1024, specs["q"]).workspace_bytes \
+        == 8 * 32 * 65536 == 16_777_216
+    assert THK.block_dw_plan(1024, specs["out"]).workspace_bytes \
+        == 4 * 96 * 65536 == 25_165_824
+
+
+@pytest.mark.parametrize("m,splits", [(64, 1), (128, 1), (256, 2),
+                                      (512, 4), (1024, 4), (4096, 4)])
+def test_block_dw_plan_short_chains_split_less(m, splits):
+    """ffn.out (96 bank tiles, 8 virtual tiles each on average): the mean
+    chain is 8 x ceil(M / 64) K tiles; no piece under 16 of them, and at
+    most four waves of blocks."""
+    assert THK.block_dw_plan(m, _block_specs()["out"]).splits == splits
+
+
+@pytest.mark.parametrize("dtype,block_shape", [
+    (torch.float32, (128, 128)), (torch.float32, (32, 32)),
+    (torch.bfloat16, (12, 16)), (torch.bfloat16, (16, 12))])
+def test_block_dw_plan_cuda_core_for_fp32_and_ragged_tiles(dtype,
+                                                          block_shape):
+    """fp32 keeps full fp32 products on the CUDA cores; bank tiles whose
+    rows or columns are not whole 16-byte chunks cannot be copied by the
+    tensor-core body, and forcing it refuses."""
+    spec = TH.HashedSpec(virtual_shape=(96, 96), compression=0.25, seed=1,
+                         mode="block", block_shape=block_shape)
+    assert not THK.block_dw_ok(64, block_shape, dtype)
+    assert THK.block_dw_plan(64, spec, dtype) == THK.BlockDwPlan(
+        "cuda_core", 1, 0)
+    with pytest.raises(ValueError, match="tensor-core block_dw"):
+        THK.block_dw_plan(64, spec, dtype, body="tensor_core")
+
+
+def test_block_dw_plan_forced_and_refused():
+    spec = _block_specs()["q"]
+    plan = THK.block_dw_plan(1024, spec, body="tensor_core", splits=3)
+    assert plan == THK.BlockDwPlan("tensor_core", 3, 3 * 32 * 65536)
+    assert THK.block_dw_plan(1024, spec, splits=1).workspace_bytes == 0
+    assert THK.block_dw_plan(1024, spec, body="cuda_core") \
+        == THK.BlockDwPlan("cuda_core", 1, 0)
+    with pytest.raises(ValueError):
+        THK.block_dw_plan(1024, spec, body="cuda_core", splits=2)
+    with pytest.raises(ValueError):
+        THK.block_dw_plan(1024, spec, splits=0)
+    with pytest.raises(ValueError):
+        THK.block_dw_plan(1024, spec, body="tf32")
+    with pytest.raises(ValueError):
+        THK.block_dw_plan(1024, TH.HashedSpec(virtual_shape=(64, 64),
+                                              compression=0.25))
+
+
+def test_block_tables_chain_order():
+    """The chains ``block_dw`` walks: the virtual tiles of bank tile b are
+    ``order[offsets[b]:offsets[b + 1]]``, in ascending position (the JAX
+    kernel's stable argsort), every tile once."""
+    spec = TH.HashedSpec(virtual_shape=(768, 1152), compression=0.5, seed=0,
+                         mode="block", block_shape=(128, 128))
+    idx, sgn, order, offsets, _ = THK.block_tables(spec, "cpu")
+    bank_idx, bank_sgn = TH.block_indices(spec, "cpu")
+    assert idx.tolist() == bank_idx.reshape(-1).tolist()
+    assert sgn.tolist() == bank_sgn.reshape(-1).tolist()
+    assert sorted(order.tolist()) == list(range(spec.num_tiles))
+    assert offsets[0] == 0 and offsets[-1] == spec.num_tiles
+    for b in range(spec.bank_tiles):
+        chain = order[offsets[b]:offsets[b + 1]].tolist()
+        assert chain == sorted(chain)
+        assert all(idx[t] == b for t in chain)
+    assert {t.dtype for t in (idx, sgn, order, offsets)} == {torch.int32}
+
+
+def test_counts_report_tensor_core_launches():
+    """``kernels.counts`` reports the tensor-core launches of ``block_dw``
+    and the prefill beside their launches; ``reset_counts`` clears them."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import flash_prefill as TFP
+    K.reset_counts()
+    THK.block_dw.tensor_core, TFP.paged_prefill_attention.tensor_core = 3, 2
+    c = K.counts()
+    assert c["block_dw"]["tensor_core"] == 3
+    assert c["paged_prefill"]["tensor_core"] == 2
+    K.reset_counts()
+    c = K.counts()
+    assert c["block_dw"] == {"launches": 0, "plain_cuda_calls": 0,
+                             "tensor_core": 0}
+    assert c["paged_prefill"]["tensor_core"] == 0
+
+
+def test_block_tables_launch_longest_chains_first():
+    """``heavy`` lists every bank tile once, by descending number of
+    virtual tiles (ties in bank order): the longest pieces start in the
+    first wave."""
+    spec = TH.HashedSpec(virtual_shape=(768, 1152), compression=0.5, seed=0,
+                         mode="block", block_shape=(128, 128))
+    _, _, order, offsets, heavy = THK.block_tables(spec, "cpu")
+    lengths = (offsets[1:] - offsets[:-1]).tolist()
+    hv = heavy.tolist()
+    assert sorted(hv) == list(range(spec.bank_tiles))
+    assert [lengths[b] for b in hv] == sorted(lengths, reverse=True)
+    for a, b in zip(hv, hv[1:]):
+        assert lengths[a] > lengths[b] or a < b
+    assert heavy.dtype == order.dtype == torch.int32
+
+
+def test_block_dw_plan_is_ignored_on_the_cpu():
+    spec = TH.HashedSpec(virtual_shape=(64, 48), compression=0.25, seed=3,
+                         mode="block", block_shape=(16, 16))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(20, 64, generator=g)
+    gy = torch.randn(20, 48, generator=g)
+    plan = THK.block_dw_plan(20, spec, torch.bfloat16, splits=4)
+    assert torch.equal(THK.block_dw(x, gy, spec, plan=plan),
+                       THK.hashed_dw_ref(x, gy, spec))

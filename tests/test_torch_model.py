@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX package: the decoder's paged serving paths.
 
 The serving bench's two models (``benchmarks/serving_bench.py``:
-``reduced(qwen3-1.7b)`` in fp32, dense and ``hashed_variant(0.125)``)
-with params carried across as numpy.  A ragged batched prefill into the
+``reduced(qwen3-1.7b)`` in fp32, dense and ``hashed_variant(0.125)``),
+and the same hashed at 1/8 in block mode (32 x 32 tiles), with params
+carried across as numpy.  A ragged batched prefill into the
 paged pool, the M=1 LM head, then two decode steps: hidden states,
 logits and the written pages must agree within atol 1e-4 (fp32; the two
 packages sum in another order, and the reference itself misses its own
@@ -34,11 +35,15 @@ def _two_torch_threads():
     torch.set_num_threads(old)
 
 
-def _pair(hashed: bool):
+def _pair(kind: str):
     jc = jreduced(JC.get("qwen3-1.7b")).with_(dtype="float32")
     tc = TC.reduced(TC.get("qwen3-1.7b")).with_(dtype="float32")
-    if hashed:
+    if kind == "element":
         jc, tc = jc.hashed_variant(0.125), tc.hashed_variant(0.125)
+    elif kind == "block":
+        # (32, 32) tiles divide every reduced shape (64, 32, 128)
+        jc = jc.hashed_variant(0.125, mode="block").with_(hash_block=(32, 32))
+        tc = tc.hashed_variant(0.125, mode="block").with_(hash_block=(32, 32))
     jm = jbuild(jc)
     jp = jm.init(jax.random.PRNGKey(1))
     tm = tbuild(tc, device="cpu")
@@ -46,11 +51,12 @@ def _pair(hashed: bool):
     return jm, jp, tm, tp
 
 
-@pytest.mark.parametrize("hashed", [False, True],
-                         ids=["qwen3-reduced-dense", "qwen3-reduced-hashed"])
+@pytest.mark.parametrize("kind", ["dense", "element", "block"],
+                         ids=["qwen3-reduced-dense", "qwen3-reduced-hashed",
+                              "qwen3-reduced-block"])
 @pytest.mark.parametrize("impl", ["pallas", "ref"])
-def test_paged_prefill_and_decode_match_reference(hashed, impl):
-    jm, jp, tm, tp = _pair(hashed)
+def test_paged_prefill_and_decode_match_reference(kind, impl):
+    jm, jp, tm, tp = _pair(kind)
     cfg = jm.cfg
     rng = np.random.default_rng(7)
     ps, maxp, npages = 4, 6, 20
