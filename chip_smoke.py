@@ -9,29 +9,31 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
 2. build every CUDA kernel from ``src/`` (one ``nvcc`` per source, all
    at once);
 3. count the tensor-core instructions in the SASS of every tensor-core
-   function (the hashed GEMMs, ``block_dw``, the bf16 prefill) with
-   ``cuobjdump``, where it exists; hold each kernel against its plain
-   PyTorch version on the card at the full-width qwen3-1.7b-hashed8
+   function (the hashed GEMMs, both ``dw`` products, the bf16 prefill)
+   with ``cuobjdump``, where it exists; hold each kernel against its
+   plain PyTorch version on the card at the full-width qwen3-1.7b-hashed8
    shapes (the forward GEMM at M = 1 to 1024, the backward and
    block-mode kernels at M = 1024, the rows of one B=4 x S=256 training
-   step; each ``dw`` kernel and each tensor-core GEMM launched twice and
-   bitwise equal to itself; each GEMM's and ``block_dw``'s plan
-   printed, and the tensor-core ``block_dw`` planned at every block-mode
+   step; the paged decode at B=8 and at serving's B=4; each ``dw``
+   kernel, each tensor-core GEMM and the decode launched twice and
+   bitwise equal to itself; each GEMM's and ``dw`` kernel's plan
+   printed, and both ``dw`` kernels planned on the tensor cores at every
    projection), and time kernel, plain version and a PyTorch library
    yardstick with CUDA events (median of 20, the L2 flushed before each
    launch, the host ahead of the card), both GEMM bodies at M = 8 to
-   1024, both ``block_dw`` bodies and its split counts;
+   1024, both bodies of each ``dw`` kernel and their split counts;
 4. serve qwen3-1.7b-hashed8 at full width (28 layers, bf16, seeded
    weights) through the paged engine: 8 requests, every serving kernel's
    launch count > 0, every prefill launch on the tensor-core body and no
    plain version run on the card; then one decode step on the kernel
-   path against the plain path;
+   path against the bf16 plain path (the limit), both also measured
+   against an fp32 plain path (logit error and argmax agreement);
 5. profile a decode step and a prefill dispatch;
 6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
    lm_stream batches of B=4 x S=256), element mode and then block mode
    (128 x 128 tiles): one step's loss and bank gradients on the kernel
    path against the plain path, then steps on one repeated batch (the
-   loss must fall; every training kernel launched, every ``block_dw``
+   loss must fall; every training kernel launched, every ``dw`` launch
    on its tensor-core body, no plain version run on the card), step
    time, peak memory and a profile of one step; then serve 4 requests
    in block mode.
@@ -130,6 +132,7 @@ def main() -> int:
                                                    paged_prefill_ref)
     from repro_torch.kernels import hashed_matmul as THK
     from repro_torch.kernels.hashed_matmul import hashed_matmul_ref
+    from repro_torch.kernels import paged_attention as TPA
     from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                      paged_decode_attention)
     from repro_torch.kernels.topk import topk_mask, topk_mask_ref
@@ -228,6 +231,8 @@ def main() -> int:
                                 body=plan.body)
 
     # -- 3b. paged decode ------------------------------------------------------
+    # B=8 rows of 0 to 256 positions (a length-0 row on the trash page) and
+    # serving's B=4; each launched twice and bitwise equal to itself
     nkv, hq, hd, ps = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
     g = hq // nkv
     maxp, npages = 16, 8 * 16 + 1
@@ -235,42 +240,55 @@ def main() -> int:
     pv = randn(npages, ps, nkv, hd)
     perm = torch.randperm(npages - 1, generator=gen, device=dev) + 1
     table = perm[: 8 * maxp].reshape(8, maxp).to(torch.int32)
+    table[0] = 0                                   # idle row: trash page
+    kv_pos = torch.arange(maxp * ps, device=dev)
+
+    def check_decode(key, tbl, lens, zero_rows):
+        q = randn(tbl.shape[0], hq, hd)
+        for window in (0, 48):
+            got = paged_decode_attention(q, pk, pv, tbl, lens, window)
+            again = paged_decode_attention(q, pk, pv, tbl, lens, window)
+            ref = paged_attention_ref(q, pk, pv, tbl, lens, window)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            zero = all(got[r].abs().max().item() == 0.0 for r in zero_rows)
+            same = bool(torch.equal(got, again))
+            ok = rel <= TOL_BF16 and zero and same
+            print(f"    {key} window={window}: max_abs_err={err:.3e} "
+                  f"rel={rel:.2e} (tol {TOL_BF16}) length-0 rows zero="
+                  f"{zero} bitwise across two launches={same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{key} disagrees with its plain version or itself")
+        ms = timer(lambda: paged_decode_attention(q, pk, pv, tbl, lens))
+        plain = timer(lambda: paged_attention_ref(q, pk, pv, tbl, lens))
+        # the yardstick gets K/V gathered by the table and repeated over
+        # each kv head's query group, outside the timed call
+        kg = pk[tbl.long()].reshape(-1, maxp * ps, nkv, hd).transpose(1, 2) \
+            .repeat_interleave(g, dim=1)
+        vg = pv[tbl.long()].reshape(-1, maxp * ps, nkv, hd).transpose(1, 2) \
+            .repeat_interleave(g, dim=1)
+        mask = (kv_pos[None, :] < lens[:, None])[:, None, None, :]
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=mask))
+        live = int(lens.sum())
+        nbytes = 2 * (2 * q.numel()) + live * nkv * hd * 2 * 2 \
+            + tbl.numel() * 4
+        b, by = bound_ms(nbytes, 4.0 * live * hq * hd, BF16_FLOPS)
+        print(f"    {key} ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} bound_ms={b:.5f} ({by}); "
+              f"{TPA.decode_chunks(maxp, ps)} chunks of "
+              f"{TPA.DECODE_CHUNK} positions a row", flush=True)
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=b, bound_by=by)
+
     lengths = torch.tensor([0, 1, 17, 64, 100, 200, 255, 256],
                            dtype=torch.int32, device=dev)
-    table[0] = 0                                   # idle row: trash page
-    q = randn(8, hq, hd)
-    for window in (0, 48):
-        got = paged_decode_attention(q, pk, pv, table, lengths, window)
-        ref = paged_attention_ref(q, pk, pv, table, lengths, window)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        zero_row = got[0].abs().max().item() == 0.0
-        ok = rel <= TOL_BF16 and zero_row
-        print(f"    paged_decode B=8 window={window}: max_abs_err={err:.3e} "
-              f"rel={rel:.2e} (tol {TOL_BF16}) length-0 row zero={zero_row}"
-              f" {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail("paged_decode disagrees with its plain version")
-    ms = timer(lambda: paged_decode_attention(q, pk, pv, table, lengths))
-    plain = timer(lambda: paged_attention_ref(q, pk, pv, table, lengths))
-    # the yardstick gets K/V gathered by the table and repeated over each
-    # kv head's query group, outside the timed call
-    kg = pk[table.long()].reshape(8, maxp * ps, nkv, hd).transpose(1, 2) \
-        .repeat_interleave(g, dim=1)
-    vg = pv[table.long()].reshape(8, maxp * ps, nkv, hd).transpose(1, 2) \
-        .repeat_interleave(g, dim=1)
-    kv_pos = torch.arange(maxp * ps, device=dev)
-    mask = (kv_pos[None, :] < lengths[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask))
-    live = int(lengths.sum())
-    nbytes = 2 * (2 * q.numel()) + live * nkv * hd * 2 * 2 + table.numel() * 4
-    b, by = bound_ms(nbytes, 4.0 * live * hq * hd, BF16_FLOPS)
-    print(f"    paged_decode B=8 ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib:.4f} bound_ms={b:.5f} ({by})", flush=True)
-    results["paged_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                   library_ms=lib, bound_ms=b, bound_by=by)
+    check_decode("paged_decode", table, lengths, [0])
+    # phase 4's first four rows after 15 new tokens
+    check_decode("paged_decode B=4", table[4:8].clone(),
+                 torch.tensor([31, 215, 72, 145], dtype=torch.int32,
+                              device=dev), [])
 
     # -- 3c. ragged prefill ----------------------------------------------------
     S = 128
@@ -349,7 +367,7 @@ def main() -> int:
           f"library_ms={lib:.4f} bound_ms={b:.5f} ({by})", flush=True)
     results["topk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                 library_ms=lib, bound_ms=b, bound_by=by)
-    del pk, pv, v_dense, kg, vg, kgp, vgp
+    del pk, pv, v_dense, kgp, vgp
     torch.cuda.empty_cache()
 
     # -- 3e. the training kernels: dx, dw and block mode at M = 1024 ----------
@@ -404,17 +422,44 @@ def main() -> int:
                lambda: THK.hashed_dw_ref(x, gy, spec_b), block_dw_library),
               2 * m * (r + c) + 4 * spec_b.real_param_count(),
               2.0 * m * r * c, note, plan)
-        block_dw_sweep(THK, x, gy, spec_b, timer)
+        dw_sweep(THK.block_dw, THK.block_dw_plan, x, gy, spec_b, timer,
+                 (1, 2, 4, 8, 16))
 
-    # every block-mode projection of the main path (bf16, M = 1024) must
-    # take the tensor-core block_dw
-    for path, spec_b in specs_b.items():
-        plan = THK.block_dw_plan(M_TRAIN, spec_b, torch.bfloat16)
-        if plan.body != "tensor_core":
-            fail(f"block_dw at {'.'.join(path)} M={M_TRAIN} would run "
-                 f"{plan_str(plan)}")
-    print(f"    block_dw plans at M={M_TRAIN}: tensor_core at all "
-          f"{len(specs_b)} block-mode projections", flush=True)
+    def check_element_dw(slot, x, gy, spec):
+        """element_dw (paper Eq. 12) against its plain version and the
+        matmul + index_add_ yardstick, bitwise across launches, then both
+        bodies and 1 / 2 / 4 pieces over M forced."""
+        m, r, c = x.shape[0], spec.rows, spec.cols
+        plan = THK.element_dw_plan(m, spec, x.dtype)
+        got, note = bitwise(lambda: THK.element_dw(x, gy, spec))
+        ii = torch.arange(r, device=dev)[:, None]
+        jj = torch.arange(c, device=dev)[None, :]
+        eidx, esgn = H.element_indices(spec, ii, jj)
+        eidx, esgn = eidx.reshape(-1), esgn.reshape(-1).float()
+        check(f"hashed_dw {slot} M={m}", got, THK.hashed_dw_ref(x, gy, spec),
+              TOL_DW,
+              (lambda: THK.element_dw(x, gy, spec),
+               lambda: THK.hashed_dw_ref(x, gy, spec),
+               lambda: torch.zeros(spec.num_buckets, device=dev).index_add_(
+                   0, eidx, torch.matmul(x.t(), gy).float().reshape(-1)
+                   * esgn)),
+              2 * m * (r + c) + 4 * spec.num_buckets, 2.0 * m * r * c, note,
+              plan)
+        del eidx, esgn
+        dw_sweep(THK.element_dw, THK.element_dw_plan, x, gy, spec, timer,
+                 (1, 2, 4))
+
+    # every projection of the main path (bf16, M = 1024) must take the
+    # tensor-core x^T g in both modes
+    for name, plans, plan_fn in (("element_dw", specs, THK.element_dw_plan),
+                                 ("block_dw", specs_b, THK.block_dw_plan)):
+        for path, spec_ in plans.items():
+            plan = plan_fn(M_TRAIN, spec_, torch.bfloat16)
+            if plan.body != "tensor_core":
+                fail(f"{name} at {'.'.join(path)} M={M_TRAIN} would run "
+                     f"{plan_str(plan)}")
+        print(f"    {name} plans at M={M_TRAIN}: tensor_core at all "
+              f"{len(plans)} projections", flush=True)
 
     m = M_TRAIN
     for slot in ("q", "out"):
@@ -438,21 +483,8 @@ def main() -> int:
               2 * (m * c + spec.num_buckets + m * r), gemm_flops,
               repeat_note(plan, lambda: THK.element_matmul_t(gy, w, spec),
                           got), plan)
-        # element dw (paper Eq. 12); the yardstick scatters with index_add_
-        got, note = bitwise(lambda: THK.element_dw(x, gy, spec))
-        ii = torch.arange(r, device=dev)[:, None]
-        jj = torch.arange(c, device=dev)[None, :]
-        eidx, esgn = H.element_indices(spec, ii, jj)
-        eidx, esgn = eidx.reshape(-1), esgn.reshape(-1).float()
-        check(f"hashed_dw {slot} M={m}", got, THK.hashed_dw_ref(x, gy, spec),
-              TOL_DW,
-              (lambda: THK.element_dw(x, gy, spec),
-               lambda: THK.hashed_dw_ref(x, gy, spec),
-               lambda: torch.zeros(spec.num_buckets, device=dev).index_add_(
-                   0, eidx, torch.matmul(x.t(), gy).float().reshape(-1)
-                   * esgn)),
-              2 * m * (r + c) + 4 * spec.num_buckets, gemm_flops, note)
-        del v_dense, eidx, esgn
+        check_element_dw(slot, x, gy, spec)
+        del v_dense
         # block mode, 128 x 128 tiles
         wb = randn(*spec_b.real_param_shape()) * scale
         vb = H.materialize(wb, spec_b, dtype=torch.bfloat16)
@@ -480,9 +512,12 @@ def main() -> int:
                   gy, wb, spec_b, transpose=True), got), plan)
         check_block_dw(slot, x, gy, spec_b)
         del vb
-    # attn.k: 16 bank tiles, the fewest (the splits must fill the SMs)
-    spec_k = specs_b[("layers", "attn", "k", "w")]
-    check_block_dw("k", randn(m, spec_k.rows), randn(m, spec_k.cols), spec_k)
+    # attn.k: 16 bank tiles, the fewest (the splits must fill the SMs);
+    # 128 output tiles of the element product on 132 SMs
+    path = ("layers", "attn", "k", "w")
+    x, gy = randn(m, specs[path].rows), randn(m, specs[path].cols)
+    check_element_dw("k", x, gy, specs[path])
+    check_block_dw("k", x, gy, specs_b[path])
     del timer
     torch.cuda.empty_cache()
 
@@ -576,6 +611,27 @@ def main() -> int:
           f"{int(agree[decided].sum())}/{int(decided.sum())} rows whose "
           f"top-2 margin exceeds 2x the error {'ok' if ok else 'FAIL'}",
           flush=True)
+    # both paths against an fp32 oracle: the plain path in fp32 on the
+    # same weights, its own fp32 cache prefilled on the plain path
+    # (measured; the limit above stays the one check)
+    model32 = build(cfg.with_(hash_path="materialize", dtype="float32"),
+                    device="cuda")
+    params32 = _to_fp32(params)
+    pages32 = model32.init_paged_cache(4 * 16 + 1, 16)
+    model32.prefill_paged(params32, torch.from_numpy(toks).to(dev), pages32,
+                          tbl, zeros, cnt, zeros, impl="ref")
+    oracle = model32.decode_paged(params32, last, pages32, tbl, cnt,
+                                  impl="ref")[:, 0, :V]
+    torch.cuda.synchronize()
+    for name, z in (("kernel path", got[:, 0, :V]),
+                    ("bf16 plain path", ref[:, 0, :V])):
+        e, r = rel_err(z, oracle)
+        right = int((z.argmax(-1) == oracle.argmax(-1)).sum())
+        print(f"    decode-step logits {name} vs fp32 plain path: "
+              f"max_abs_err={e:.3e} rel={r:.2e}; argmax equal on "
+              f"{right}/{z.shape[0]} rows (measured, no limit)", flush=True)
+    del model32, params32, pages32, oracle
+    torch.cuda.empty_cache()
     if not ok:
         fail("decode-step logits: kernel path disagrees with plain path")
 
@@ -683,6 +739,9 @@ def main() -> int:
                               f"hashed_matmul out M={M_TRAIN}",
                               f"hashed_matmul q M={M_TRAIN}"],
             "hashed_matmul_t": [f"hashed_matmul_t q M={M_TRAIN}"],
+            "hashed_dw": [f"hashed_dw q M={M_TRAIN}",
+                          f"hashed_dw k M={M_TRAIN}"],
+            "paged_decode": ["paged_decode B=4"],
             "block_matmul": [f"block_matmul_t out M={M_TRAIN}",
                              f"block_matmul q M={M_TRAIN}",
                              f"block_matmul_t q M={M_TRAIN}"],
@@ -711,7 +770,7 @@ def main() -> int:
 
 
 def plan_str(plan) -> str:
-    """A GEMM plan or a ``block_dw`` plan on one line."""
+    """A GEMM plan or a ``dw`` plan on one line."""
     if not hasattr(plan, "bm"):
         return (f"body={plan.body} splits={plan.splits} "
                 f"workspace={plan.workspace_bytes} B")
@@ -724,23 +783,23 @@ def bodies_str(times) -> str:
     return ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
 
 
-def block_dw_sweep(THK, x, gy, spec, timer) -> None:
-    """Time ``block_dw`` with each body forced, and the tensor-core body
-    at 1 to 16 pieces a chain, each forced plan held to the default
-    plan's result (the pieces change only the fp32 summation order)."""
+def dw_sweep(kernel, plan_fn, x, gy, spec, timer, splits) -> None:
+    """Time a ``dw`` kernel (``element_dw`` or ``block_dw``) with each
+    body forced, the tensor-core body at each count of pieces in
+    ``splits``, each forced plan held to the default plan's result (the
+    pieces change only the fp32 summation order)."""
     m = x.shape[0]
-    want = THK.block_dw(x, gy, spec)
+    want = kernel(x, gy, spec)
     times = {}
-    for body, splits in [("cuda_core", 1)] + [("tensor_core", s)
-                                              for s in (1, 2, 4, 8, 16)]:
-        plan = THK.block_dw_plan(m, spec, x.dtype, body=body, splits=splits)
-        got = THK.block_dw(x, gy, spec, plan=plan)
+    for body, n in [("cuda_core", 1)] + [("tensor_core", n) for n in splits]:
+        plan = plan_fn(m, spec, x.dtype, body=body, splits=n)
+        got = kernel(x, gy, spec, plan=plan)
         torch.cuda.synchronize()
         if rel_err(got, want)[1] > TOL_DW:
-            fail(f"block_dw with a forced plan ({plan_str(plan)}) "
+            fail(f"{kernel.__name__} with a forced plan ({plan_str(plan)}) "
                  f"disagrees with the default plan")
-        key = body if body == "cuda_core" else f"tensor_core splits={splits}"
-        times[key] = timer(lambda: THK.block_dw(x, gy, spec, plan=plan))
+        key = body if body == "cuda_core" else f"tensor_core splits={n}"
+        times[key] = timer(lambda: kernel(x, gy, spec, plan=plan))
     print(f"      bodies forced: {bodies_str(times)}", flush=True)
 
 
@@ -758,6 +817,7 @@ def repeat_note(plan, fn, first) -> str:
 
 # library -> the functions that must run on the tensor cores (name part)
 TC_FUNCTIONS = {"hashed_matmul": ("tc_gemm",),
+                "hashed_dw": ("tc_xtg",),
                 "hashed_block": ("tc_gemm", "tc_xtg"),
                 "flash_prefill": ("prefill_tc",)}
 
@@ -965,6 +1025,12 @@ def _profile(fn):
         return None, []
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:8]
+
+
+def _to_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_fp32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 def _leaves(tree):

@@ -9,17 +9,17 @@ trees back to back on the same card, alternating (A, B, B, A), to
 compare them.  Shapes: qwen3-1.7b-hashed8 at full width, ``attn.q``
 (2048 x 2048) and ``ffn.out`` (6144 x 2048), element mode forward at
 M = 8, 256 and 1024, the element transpose (``dx``), the block-mode
-forward and transpose (128 x 128 tiles) at M = 1024, and the block-mode
-bank gradient (``block_dw``) at M = 1024 at ``attn.q``, ``attn.k``
-(2048 x 1024) and ``ffn.out``.  Each time is the
+forward and transpose (128 x 128 tiles) at M = 1024, and the bank
+gradients of both modes (``element_dw``, ``block_dw``) at M = 1024 at
+``attn.q``, ``attn.k`` (2048 x 1024) and ``ffn.out``.  Each time is the
 median over 20 launches of CUDA events around one wrapper call, the L2
 flushed before each and the host ahead of the card (a device-side sleep
 after the flush), so Python's launch cost is not counted.  With
 ``--split`` each case also reports its device time by kernel (the
-decompression, the GEMM, the split-K reduction), from ``torch.profiler``
-over 5 calls, the L2 flushed before each.  Prints the card's name and
-power limit, then one JSON line per case.  Needs one CUDA card and
-``nvcc``; imports nothing of JAX.
+decompression, the GEMM, the split-K reduction, the segment pass), from
+``torch.profiler`` over 5 calls, the L2 flushed before each.  Prints the
+card's name and power limit, then one JSON line per case.  Needs one
+CUDA card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -58,7 +58,8 @@ def split(fn, flush, calls: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(calls):
             flush.zero_()
             fn()
@@ -92,7 +93,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    _build.build(["hashed_matmul", "hashed_block"])
+    _build.build(["hashed_matmul", "hashed_dw", "hashed_block"])
     dev = torch.device("cuda")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -127,11 +128,14 @@ def main() -> int:
         ]
         report(cases, args, flush)
     for slot in ("q", "k", "out"):
-        spec_b = specs_b[{"q": ("layers", "attn", "q", "w"),
-                          "k": ("layers", "attn", "k", "w"),
-                          "out": ("layers", "ffn", "out", "w")}[slot]]
-        x, gy = randn(1024, spec_b.rows), randn(1024, spec_b.cols)
-        report([(f"block dw {slot} M=1024",
+        path = {"q": ("layers", "attn", "q", "w"),
+                "k": ("layers", "attn", "k", "w"),
+                "out": ("layers", "ffn", "out", "w")}[slot]
+        spec, spec_b = specs[path], specs_b[path]
+        x, gy = randn(1024, spec.rows), randn(1024, spec.cols)
+        report([(f"element dw {slot} M=1024",
+                 lambda: THK.element_dw(x, gy, spec)),
+                (f"block dw {slot} M=1024",
                  lambda: THK.block_dw(x, gy, spec_b))], args, flush)
     return 0
 

@@ -49,6 +49,7 @@ def reset_counts() -> None:
         for plain in plains:
             plain.cuda_calls = 0
     block_matmul.transposed = 0
+    element_dw.tensor_core = 0
     block_dw.tensor_core = 0
     paged_prefill_attention.tensor_core = 0
 
@@ -56,12 +57,14 @@ def reset_counts() -> None:
 def counts() -> dict:
     """{name: {"launches": kernel launches, "plain_cuda_calls": calls of
     its plain versions on CUDA tensors}}; ``block_matmul`` also reports
-    how many of its launches were transposed, ``block_dw`` and
-    ``paged_prefill`` how many ran their tensor-core body."""
+    how many of its launches were transposed, ``hashed_dw``
+    (``element_dw``), ``block_dw`` and ``paged_prefill`` how many ran
+    their tensor-core body."""
     out = {name: {"launches": wrapper.launches,
                   "plain_cuda_calls": sum(p.cuda_calls for p in plains)}
            for name, (wrapper, plains, _) in KERNELS.items()}
     out["block_matmul"]["transposed"] = block_matmul.transposed
+    out["hashed_dw"]["tensor_core"] = element_dw.tensor_core
     out["block_dw"]["tensor_core"] = block_dw.tensor_core
     out["paged_prefill"]["tensor_core"] = paged_prefill_attention.tensor_core
     return out

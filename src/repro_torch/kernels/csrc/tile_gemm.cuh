@@ -45,14 +45,16 @@
 // them in split order, so the result does not depend on scheduling and
 // no float atomics are used.
 //
-// tc_xtg — bf16 block_dw: x^T g on the tensor cores, contracting over M,
-// summed over a bank tile's chain of virtual tiles in the same ring and
-// wgmma pipeline as tc_gemm (tc_mainloop); both operands MN-major; the
-// pieces of a chain added in split order by splitk_reduce.
+// tc_xtg — bf16 block_dw and element dw: x^T g on the tensor cores,
+// contracting over M, summed over a bank tile's chain of virtual tiles in
+// the same ring and wgmma pipeline as tc_gemm (tc_mainloop); both operands
+// MN-major; the pieces of a chain added in split order by splitk_reduce.
+// Element mode's product is the degenerate case of one R x C bank tile
+// whose chain is one virtual tile of sign +1 (hashed_dw.cu).
 //
 // xtg_accumulate: one 64 x 64 tile of x^T g (x (M, R), g (M, C)) summed
-// over all M rows into registers on the CUDA cores, the product the
-// element dw kernel and fp32 block_dw need.
+// over all M rows into registers on the CUDA cores, the product the fp32
+// element dw and fp32 block_dw need.
 #pragma once
 #include "common.cuh"
 

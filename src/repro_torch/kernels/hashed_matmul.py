@@ -8,7 +8,7 @@ package's ``kernels/hashed_matmul.py``:
 - :func:`element_matmul_t` — ``dx = g @ V^T``, the same kernels with the
   virtual coordinates swapped (``element_matmul(transpose=True)``);
 - :func:`element_dw` — the bank gradient of paper Eq. 12
-  (``csrc/hashed_dw.cu``; ``element_dw``);
+  (``csrc/hashed_dw.cu`` + ``tile_gemm.cuh``; ``element_dw``);
 - :func:`block_matmul` — ``x @ V`` or ``x @ V^T`` in block mode
   (``csrc/hashed_block.cu``; ``block_matmul``);
 - :func:`block_dw` — the block-mode bank gradient (same source;
@@ -41,12 +41,14 @@ atomics anywhere.  Both ``dw`` kernels sum each bucket or bank tile in a
 fixed order over a static map of the virtual positions that hash to it,
 built once per spec on the device and cached here.
 
-``block_dw`` runs one of two bodies too, chosen by
-:func:`block_dw_plan`: bf16 takes ``x^T g`` on the tensor cores
-(``wgmma``, bf16 operands, fp32 sums, as the TPU kernel's dot with
-``preferred_element_type=float32``), each bank tile's chain of virtual
-tiles cut into a fixed number of pieces whose fp32 partials are added in
-order; fp32 keeps the CUDA-core body.
+``block_dw`` and ``element_dw`` run one of two bodies for ``x^T g`` too,
+chosen by :func:`block_dw_plan` and :func:`element_dw_plan`: bf16 takes
+the tensor cores (``wgmma``, bf16 operands, fp32 sums, as the TPU
+kernels' dots with ``preferred_element_type=float32``), each bank tile's
+chain of virtual tiles cut into a fixed number of pieces whose fp32
+partials are added in order (element mode: one R x C "bank tile" whose
+chain is one virtual tile, pieces over M only); fp32 keeps the CUDA-core
+body.
 
 The plain versions are the ports of the JAX package's ``kernels/ref.py``
 oracles (``hashed_matmul_ref``, ``hashed_matmul_t_ref``,
@@ -156,9 +158,12 @@ def _segments(keys: torch.Tensor, n: int):
 
 
 def element_segments(spec: H.HashedSpec, device):
-    """Inverse hash map of an element-mode spec: every virtual position
-    i * cols + j grouped by bucket.  4 bytes per virtual weight (plus the
-    bucket offsets), built on ``device`` and cached for the process."""
+    """Inverse hash map of an element-mode spec: (order, offsets), every
+    virtual position i * cols + j grouped by bucket (ascending inside
+    each bucket), with bit 31 of its int32 entry set where the sign
+    xi(i, j) is -1 (``element_dw``'s segment pass applies it).  4 bytes
+    per virtual weight (plus the bucket offsets), built on ``device`` and
+    cached for the process."""
     key = ("element", spec, str(device))
     if key not in _MAPS:
         if spec.virtual_size >= 2 ** 31:
@@ -166,8 +171,12 @@ def element_segments(spec: H.HashedSpec, device):
                              f"than 2**31 virtual positions")
         i = torch.arange(spec.rows, dtype=torch.int64, device=device)[:, None]
         j = torch.arange(spec.cols, dtype=torch.int64, device=device)[None, :]
-        idx, _ = H.element_indices(spec, i, j)
-        _MAPS[key] = _segments(idx.reshape(-1), spec.num_buckets)
+        idx, sgn = H.element_indices(spec, i, j)
+        order, offsets = _segments(idx.reshape(-1), spec.num_buckets)
+        pos = order.long()
+        # p - 2**31 is p with bit 31 set, in int32
+        pos = torch.where(sgn.reshape(-1)[pos] < 0, pos - 2 ** 31, pos)
+        _MAPS[key] = (pos.to(torch.int32), offsets)
     return _MAPS[key]
 
 
@@ -360,10 +369,12 @@ def element_matmul_t(g: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
     return y if out_dtype == g.dtype else y.to(out_dtype)
 
 
-def element_dw(x: torch.Tensor, g: torch.Tensor,
-               spec: H.HashedSpec) -> torch.Tensor:
+def element_dw(x: torch.Tensor, g: torch.Tensor, spec: H.HashedSpec, *,
+               plan: Optional[DwPlan] = None) -> torch.Tensor:
     """dw (num_buckets,) fp32 from x (M, R) and the upstream grad g (M, C)
-    of y = x @ V, element mode."""
+    of y = x @ V, element mode; ``plan`` (default :func:`element_dw_plan`)
+    picks the body of the product ``x^T g`` and its pieces over M.
+    ``element_dw.tensor_core`` counts the launches on the tensor cores."""
     if x.device.type == "cpu":
         return hashed_dw_ref(x, g, spec)
     if spec.mode != "element":
@@ -371,18 +382,26 @@ def element_dw(x: torch.Tensor, g: torch.Tensor,
     _check("element_dw", x, spec.rows)
     g = _grad_rows("element_dw", x, g, spec.cols)
     order, offsets = element_segments(spec, x.device)
+    plan = plan or element_dw_plan(x.shape[0], spec, x.dtype)
+    tc = plan.body == "tensor_core"
+    if tc:
+        x, g = _build.aligned16(x), _build.aligned16(g)
     ws = torch.empty(spec.virtual_size, dtype=torch.float32, device=x.device)
+    split_ws = torch.empty((plan.splits, spec.virtual_size),
+                           dtype=torch.float32, device=x.device) \
+        if tc and plan.splits > 1 else None
     dw = torch.empty(spec.num_buckets, dtype=torch.float32, device=x.device)
     fn = _build.bind("hashed_dw", "hashed_element_dw",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                     + [ctypes.c_uint] + [ctypes.c_int] * 3
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                      + [ctypes.c_void_p])
-    rc = fn(_build.ptr(x), _build.ptr(g), _build.ptr(ws), _build.ptr(order),
-            _build.ptr(offsets), _build.ptr(dw), x.shape[0], spec.rows,
-            spec.cols, spec.seed & 0xFFFFFFFF, int(spec.use_sign),
-            spec.num_buckets, _build.DTYPE_CODE[x.dtype], _build.stream_of(x))
+    rc = fn(_build.ptr(x), _build.ptr(g), _build.ptr(ws),
+            _build.ptr(split_ws), _build.ptr(order), _build.ptr(offsets),
+            _build.ptr(dw), x.shape[0], spec.rows, spec.cols,
+            spec.num_buckets, _build.DTYPE_CODE[x.dtype], int(tc),
+            plan.splits, _build.stream_of(x))
     _build.check(rc, "element_dw")
     element_dw.launches += 1
+    element_dw.tensor_core += int(tc)
     return dw
 
 
@@ -435,12 +454,15 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
 
 
 @dataclass(frozen=True)
-class BlockDwPlan:
-    """How one ``block_dw`` runs: ``body`` ("tensor_core" or
-    "cuda_core"), the number of pieces (``splits``) each bank tile's
-    chain of (virtual tile, 64-row step of M) products is cut into, and
-    the fp32 partials' workspace (``splits x bank_tiles x brow x bcol x
-    4`` bytes when ``splits > 1``) the wrapper allocates for the call."""
+class DwPlan:
+    """How one ``block_dw`` or ``element_dw`` runs: ``body``
+    ("tensor_core" or "cuda_core") of the product ``x^T g``, the number
+    of pieces (``splits``) each bank tile's chain of (virtual tile, 64-row
+    step of M) products is cut into, and the fp32 partials' workspace
+    (``splits x bank_tiles x brow x bcol x 4`` bytes when ``splits > 1``)
+    the wrapper allocates for the call.  Element mode is one bank tile of
+    R x C whose chain is one virtual tile; its R x C x 4 bytes of product,
+    which every body writes, are not counted here."""
     body: str
     splits: int
     workspace_bytes: int
@@ -453,16 +475,47 @@ DW_MIN_STEPS = 16   # ... and no piece under this many K tiles on average
 
 
 def block_dw_ok(m: int, block_shape, dtype) -> bool:
-    """Whether the tensor-core ``block_dw`` takes this product: bf16, and
-    bank tiles whose rows and columns hold whole 16-byte chunks."""
+    """Whether the tensor-core ``x^T g`` takes this product: bf16, and
+    bank tiles (element mode: the whole R x C) whose rows and columns
+    hold whole 16-byte chunks."""
     brow, bcol = block_shape
     return dtype == torch.bfloat16 and m > 0 and brow % 8 == 0 \
         and bcol % 8 == 0
 
 
+def _dw_plan(what: str, m: int, bank_tiles: int, block_shape,
+             virtual_tiles: int, dtype, body: Optional[str],
+             splits: Optional[int]) -> DwPlan:
+    tc = block_dw_ok(m, block_shape, dtype)
+    if body is None:
+        body = "tensor_core" if tc else "cuda_core"
+    elif body == "tensor_core" and not tc:
+        raise ValueError(f"the tensor-core {what} takes bf16 with bank "
+                         f"tile rows and columns multiples of 8; got m={m} "
+                         f"{dtype} block_shape={tuple(block_shape)}")
+    elif body not in _TILES:
+        raise ValueError(f"body {body!r}")
+    if body == "cuda_core":
+        if splits not in (None, 1):
+            raise ValueError(f"the CUDA-core {what} does not split")
+        return DwPlan(body, 1, 0)
+    brow, bcol = block_shape
+    blocks = bank_tiles * -(-brow // DW_TILE) * -(-bcol // DW_TILE)
+    mean_steps = virtual_tiles * -(-m // DW_STEP) / bank_tiles
+    if splits is None:
+        splits = 1
+        while blocks * splits * 2 <= DW_WAVES * _SMS \
+                and mean_steps / (splits * 2) >= DW_MIN_STEPS:
+            splits *= 2
+    elif splits < 1:
+        raise ValueError(f"splits {splits}")
+    return DwPlan(body, splits, splits * bank_tiles * brow * bcol * 4
+                  if splits > 1 else 0)
+
+
 def block_dw_plan(m: int, spec: H.HashedSpec, dtype=torch.bfloat16, *,
                   body: Optional[str] = None,
-                  splits: Optional[int] = None) -> BlockDwPlan:
+                  splits: Optional[int] = None) -> DwPlan:
     """The plan of ``block_dw`` on x (m, rows) and g (m, cols) of a
     block-mode ``spec``.  ``body`` and ``splits`` force a choice
     (chip_smoke times them); by default bf16 takes the tensor cores when
@@ -477,36 +530,29 @@ def block_dw_plan(m: int, spec: H.HashedSpec, dtype=torch.bfloat16, *,
     ``attn.q``, ``attn.k`` and ``ffn.out`` (PERF.md)."""
     if spec.mode != "block":
         raise ValueError("block_dw_plan takes block-mode specs")
-    tc = block_dw_ok(m, spec.block_shape, dtype)
-    if body is None:
-        body = "tensor_core" if tc else "cuda_core"
-    elif body == "tensor_core" and not tc:
-        raise ValueError(f"the tensor-core block_dw takes bf16 with bank "
-                         f"tile rows and columns multiples of 8; got m={m} "
-                         f"{dtype} block_shape={spec.block_shape}")
-    elif body not in _TILES:
-        raise ValueError(f"body {body!r}")
-    if body == "cuda_core":
-        if splits not in (None, 1):
-            raise ValueError("the CUDA-core block_dw does not split")
-        return BlockDwPlan(body, 1, 0)
-    brow, bcol = spec.block_shape
     gi, gj = spec.tile_grid
-    blocks = spec.bank_tiles * -(-brow // DW_TILE) * -(-bcol // DW_TILE)
-    mean_steps = gi * gj * -(-m // DW_STEP) / spec.bank_tiles
-    if splits is None:
-        splits = 1
-        while blocks * splits * 2 <= DW_WAVES * _SMS \
-                and mean_steps / (splits * 2) >= DW_MIN_STEPS:
-            splits *= 2
-    elif splits < 1:
-        raise ValueError(f"splits {splits}")
-    return BlockDwPlan(body, splits, splits * spec.bank_tiles * brow * bcol
-                       * 4 if splits > 1 else 0)
+    return _dw_plan("block_dw", m, spec.bank_tiles, spec.block_shape,
+                    gi * gj, dtype, body, splits)
+
+
+def element_dw_plan(m: int, spec: H.HashedSpec, dtype=torch.bfloat16, *,
+                    body: Optional[str] = None,
+                    splits: Optional[int] = None) -> DwPlan:
+    """The plan of ``element_dw``'s product ``x^T g`` on x (m, rows) and
+    g (m, cols) of an element-mode ``spec``: :func:`block_dw_plan`'s rule
+    for one bank tile of rows x cols whose chain is one virtual tile, so
+    the pieces cut M alone (ceil(m / 64) K tiles).  bf16 takes the
+    tensor cores when rows and columns are multiples of 8; at
+    qwen3-1.7b's widths and M = 1024 no split is kept (16 K tiles a
+    piece, 128 to 768 output tiles of 128 x 128)."""
+    if spec.mode != "element":
+        raise ValueError("element_dw_plan takes element-mode specs")
+    return _dw_plan("element_dw", m, 1, spec.virtual_shape, 1, dtype, body,
+                    splits)
 
 
 def block_dw(x: torch.Tensor, g: torch.Tensor, spec: H.HashedSpec, *,
-             plan: Optional[BlockDwPlan] = None) -> torch.Tensor:
+             plan: Optional[DwPlan] = None) -> torch.Tensor:
     """dbank (bank_tiles, brow, bcol) fp32 from x (M, R) and the upstream
     grad g (M, C) of y = x @ V, block mode; ``plan`` (default
     :func:`block_dw_plan`) picks the body and the split count."""
@@ -545,4 +591,5 @@ for _kernel in (element_matmul, element_matmul_t, element_dw, block_matmul,
                 block_dw):
     _kernel.launches = 0
 block_matmul.transposed = 0
+element_dw.tensor_core = 0
 block_dw.tensor_core = 0

@@ -3,14 +3,19 @@ KV cache.
 
 Kernel: ``csrc/paged_attention.cu`` (CUDA C++, sm_90a).  It replaces the
 JAX package's ``kernels/paged_attention.py`` ``_decode_kernel`` /
-``paged_decode_attention``.  One block per (kv head, row) walks the
-row's pages through the page table with an online softmax (m, l, acc in
-registers); pages wholly outside the row's window are skipped, which
-adds exactly the zero weight the TPU kernel's masking gives them.  What
-bounds it on the H100 is bytes: every live K/V token is read once, at
-about four flops per byte; the kernel reads K and V rows coalesced.
-Page 0 is the trash page; unused table slots point at it and are masked
-through ``lengths``; rows with ``length == 0`` give zeros.
+``paged_decode_attention``.  Flash-decoding: the row's KV positions are
+cut into chunks of ``DECODE_CHUNK`` (one block per kv head, row and
+chunk; :func:`decode_chunks` per row of the table), each block stages
+its live positions' K and V rows through the page table into shared
+memory and writes the chunk's fp32 (m, l, acc); a second pass merges
+the chunks in chunk order (the same bits on every launch).  Chunks
+wholly outside the row's window or length exit at once, which adds
+exactly the zero weight the TPU kernel's masking gives them.  What
+bounds it on the H100 is bytes (every live K/V token read once, at
+about four flops per byte) and, at serving's batch sizes, the latency
+of the dependent length, table and K/V loads.  Page 0 is the trash
+page; unused table slots point at it and are masked through
+``lengths``; rows with ``length == 0`` give zeros.
 
 The plain version :func:`paged_attention_ref` (the port of the JAX
 package's ``kernels/ref.py`` ``paged_attention_ref``) gathers the whole
@@ -26,6 +31,13 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
+DECODE_CHUNK = 64      # KV positions per block (csrc kChunk)
+
+
+def decode_chunks(max_pages: int, page_size: int) -> int:
+    """Chunks the split-KV decode cuts a row of ``max_pages`` table slots
+    into: ceil(max_pages * page_size / DECODE_CHUNK), at least one."""
+    return max(1, -(-max_pages * page_size // DECODE_CHUNK))
 
 
 def paged_attention_ref(q, pages_k, pages_v, page_table, lengths, window=0):
@@ -93,19 +105,27 @@ def paged_decode_attention(q, pages_k, pages_v, page_table, lengths,
             or pages_v.dtype != q.dtype:
         raise ValueError("paged_decode_attention: q and pages must share "
                          "dtype float32 or bfloat16")
-    q = q.contiguous()
+    q = _build.aligned16(q.contiguous())
     if not (pages_k.is_contiguous() and pages_v.is_contiguous()):
         raise ValueError("paged_decode_attention: page pools must be "
                          "contiguous")
+    if pages_k.data_ptr() % 16 or pages_v.data_ptr() % 16:
+        raise ValueError("paged_decode_attention: page pools must start "
+                         "on a 16-byte boundary")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    maxp = table.shape[1]
+    n_chunks = decode_chunks(maxp, ps)
     out = torch.empty_like(q)
+    # the chunks' partials: acc (B, Hq, chunks, D), then (m, l)
+    ws = torch.empty(b * hq * n_chunks * (d + 2), dtype=torch.float32,
+                     device=q.device)
     fn = _build.bind("paged_attention", "paged_decode",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                      + [ctypes.c_void_p])
     rc = fn(_build.ptr(q), _build.ptr(pages_k), _build.ptr(pages_v),
             _build.ptr(table), _build.ptr(lens), _build.ptr(out),
-            b, n_kv, g, d, table.shape[1], ps, int(window),
+            _build.ptr(ws), b, n_kv, g, d, maxp, ps, n_chunks, int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check(rc, "paged_decode")
     paged_decode_attention.launches += 1

@@ -115,6 +115,62 @@ def test_cuda_element_dw_vs_plain_and_bitwise_repeatable(
     assert err <= 1e-5 * scale
 
 
+def _element_dw_case(cuda_device, shape, m, panel_cols, use_sign=True):
+    spec = TH.HashedSpec(virtual_shape=shape, compression=0.125, seed=8,
+                         panel_cols=panel_cols, use_sign=use_sign)
+    g = torch.Generator(device=cuda_device).manual_seed(m + panel_cols)
+    x = torch.randn(m, shape[0], generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    gy = torch.randn(m, shape[1], generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    return spec, x, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 200, 1024])
+@pytest.mark.parametrize("panel_cols", [0, 256])
+@pytest.mark.parametrize("shape,use_sign", [((768, 1024), True),
+                                            ((392, 648), False)])
+def test_cuda_element_dw_tensor_core_vs_plain(cuda_device, m, panel_cols,
+                                              shape, use_sign):
+    """bf16 element dw with x^T g on the tensor cores (one R x C bank
+    tile; 200 rows end inside a 64-row step; 392 x 648 ends inside a
+    128 x 128 output tile), the signs applied by the segment pass; within
+    1e-5 x the largest plain value (fp32 sums in another order), bitwise
+    equal to itself across launches, counted as a tensor-core launch."""
+    spec, x, gy = _element_dw_case(cuda_device, shape, m, panel_cols,
+                                   use_sign)
+    assert THK.element_dw_plan(m, spec).body == "tensor_core"
+    before = THK.element_dw.launches, THK.element_dw.tensor_core
+    got = THK.element_dw(x, gy, spec)
+    assert (THK.element_dw.launches, THK.element_dw.tensor_core) \
+        == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (spec.num_buckets,)
+    assert torch.equal(got, THK.element_dw(x, gy, spec))
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,splits", [("tensor_core", 1),
+                                         ("tensor_core", 3),
+                                         ("tensor_core", 8),
+                                         ("cuda_core", 1)])
+def test_cuda_element_dw_forced_plans_vs_plain(cuda_device, body, splits):
+    """Forced plans at M = 200 (4 row steps): one piece, 3 uneven pieces
+    over M, 8 pieces (more than the steps, so some are empty and add
+    zeros), and the CUDA-core body on bf16; each within 1e-5 x scale of
+    the plain version and bitwise repeatable."""
+    spec, x, gy = _element_dw_case(cuda_device, (768, 1024), 200, 256)
+    plan = THK.element_dw_plan(200, spec, body=body, splits=splits)
+    before = THK.element_dw.tensor_core
+    got = THK.element_dw(x, gy, spec, plan=plan)
+    assert THK.element_dw.tensor_core == before + (body == "tensor_core")
+    assert torch.equal(got, THK.element_dw(x, gy, spec, plan=plan))
+    err, scale = _max_err(got, THK.hashed_dw_ref(x, gy, spec))
+    assert err <= 1e-5 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [3, 8, 130])
 @pytest.mark.parametrize("transpose", [False, True])
@@ -347,6 +403,53 @@ def test_cuda_paged_decode_vs_plain(cuda_device, window):
     assert (got - want).abs().max().item() \
         <= 1e-5 * want.abs().max().item()
     assert got[1].abs().max().item() == 0.0
+
+
+# (dtype, page size, window): bf16 at both page sizes and windows, fp32
+# at one
+_DECODE_CASES = [(torch.bfloat16, ps, w) for ps in (8, 16) for w in (0, 24)] \
+    + [(torch.float32, 16, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,page_size,window", _DECODE_CASES)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_cuda_paged_decode_split_kv_vs_plain(cuda_device, dtype, page_size,
+                                             window, group, head_dim):
+    """The split-KV decode over 64-position chunks: lengths at the chunk
+    edges (63, 64, 65, 128, 129), one and four chunks, a length-0 row on
+    the trash page (exact zeros), rows whose window starts mid-chunk,
+    pages in random order; within 1e-2 x scale (bf16, one rounding of
+    the output) or 1e-5 x scale (fp32) of the plain version, and bitwise
+    equal to itself across launches."""
+    n_kv, maxp = 2, 256 // page_size
+    g = torch.Generator(device=cuda_device).manual_seed(
+        head_dim + group + page_size + window)
+    lengths = torch.tensor([0, 1, 24, 63, 64, 65, 129, 256],
+                           dtype=torch.int32, device=cuda_device)
+    b = lengths.numel()
+    npages = b * maxp + 1
+    pk = torch.randn(npages, page_size, n_kv, head_dim, generator=g,
+                     device=cuda_device).to(dtype)
+    pv = torch.randn(npages, page_size, n_kv, head_dim, generator=g,
+                     device=cuda_device).to(dtype)
+    perm = torch.randperm(npages - 1, generator=g, device=cuda_device) + 1
+    table = perm[: b * maxp].reshape(b, maxp).to(torch.int32)
+    used = -(-lengths.long() // page_size)
+    table[torch.arange(maxp, device=cuda_device)[None, :] >= used[:, None]] = 0
+    q = torch.randn(b, n_kv * group, head_dim, generator=g,
+                    device=cuda_device).to(dtype)
+    before = TPA.paged_decode_attention.launches
+    got = TPA.paged_decode_attention(q, pk, pv, table, lengths, window)
+    assert TPA.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, TPA.paged_decode_attention(q, pk, pv, table,
+                                                       lengths, window))
+    assert got[0].abs().max().item() == 0.0
+    err, scale = _max_err(got, TPA.paged_attention_ref(q, pk, pv, table,
+                                                       lengths, window))
+    assert err <= (1e-2 if dtype == torch.bfloat16 else 1e-5) * scale
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The hashed GEMM's plan: which body runs a product, with which tiles,
 split count and transient workspaces (``kernels/hashed_matmul.py``
-``gemm_plan``), and ``block_dw``'s (``block_dw_plan``: body, pieces a
-chain, fp32 workspace).
+``gemm_plan``), and the bank gradients' (``block_dw_plan``,
+``element_dw_plan``: body, pieces a chain, fp32 workspace).
 
 The plan is pure Python, so these tests run without a card: bf16
 products of more than 8 rows take the tensor-core body (128 x 128 x 64
@@ -224,7 +224,7 @@ def test_block_dw_plan_cuda_core_for_fp32_and_ragged_tiles(dtype,
     spec = TH.HashedSpec(virtual_shape=(96, 96), compression=0.25, seed=1,
                          mode="block", block_shape=block_shape)
     assert not THK.block_dw_ok(64, block_shape, dtype)
-    assert THK.block_dw_plan(64, spec, dtype) == THK.BlockDwPlan(
+    assert THK.block_dw_plan(64, spec, dtype) == THK.DwPlan(
         "cuda_core", 1, 0)
     with pytest.raises(ValueError, match="tensor-core block_dw"):
         THK.block_dw_plan(64, spec, dtype, body="tensor_core")
@@ -233,10 +233,10 @@ def test_block_dw_plan_cuda_core_for_fp32_and_ragged_tiles(dtype,
 def test_block_dw_plan_forced_and_refused():
     spec = _block_specs()["q"]
     plan = THK.block_dw_plan(1024, spec, body="tensor_core", splits=3)
-    assert plan == THK.BlockDwPlan("tensor_core", 3, 3 * 32 * 65536)
+    assert plan == THK.DwPlan("tensor_core", 3, 3 * 32 * 65536)
     assert THK.block_dw_plan(1024, spec, splits=1).workspace_bytes == 0
     assert THK.block_dw_plan(1024, spec, body="cuda_core") \
-        == THK.BlockDwPlan("cuda_core", 1, 0)
+        == THK.DwPlan("cuda_core", 1, 0)
     with pytest.raises(ValueError):
         THK.block_dw_plan(1024, spec, body="cuda_core", splits=2)
     with pytest.raises(ValueError):
@@ -309,3 +309,102 @@ def test_block_dw_plan_is_ignored_on_the_cpu():
     plan = THK.block_dw_plan(20, spec, torch.bfloat16, splits=4)
     assert torch.equal(THK.block_dw(x, gy, spec, plan=plan),
                        THK.hashed_dw_ref(x, gy, spec))
+
+
+# ---------------------------------------------------------------------------
+# element_dw: which body, how many pieces M is cut into
+# ---------------------------------------------------------------------------
+
+def _element_specs():
+    """qwen3-1.7b-hashed8's element-mode projections: specs only."""
+    import repro_torch.configs as TC
+    from repro_torch.models.transformer import bank_spec_map
+    cfg = TC.get("qwen3-1.7b-hashed8")
+    return {path[-2]: spec for path, spec in bank_spec_map(cfg).items()}
+
+
+ELEMENT_SHAPES = {"q": (2048, 2048), "k": (2048, 1024), "v": (2048, 1024),
+                  "o": (2048, 2048), "gate": (2048, 6144),
+                  "in": (2048, 6144), "out": (6144, 2048)}
+
+
+@pytest.mark.parametrize("proj", sorted(ELEMENT_SHAPES))
+def test_element_dw_plan_at_qwen3_projections(proj):
+    """Every bf16 projection of a training step (M = 1024) takes x^T g on
+    the tensor cores in one piece: 16 K tiles of M, no shorter piece
+    allowed, and 128 (attn.k/v) to 768 (the FFN) output tiles of
+    128 x 128 already fill the SMs; no split workspace."""
+    spec = _element_specs()[proj]
+    assert spec.mode == "element"
+    assert spec.virtual_shape == ELEMENT_SHAPES[proj]
+    assert THK.element_dw_plan(1024, spec, torch.bfloat16) \
+        == THK.DwPlan("tensor_core", 1, 0)
+    r, c = spec.virtual_shape
+    assert 128 <= (r // 128) * (c // 128) <= 768
+
+
+@pytest.mark.parametrize("m,splits", [(64, 1), (200, 1), (1024, 1),
+                                      (2048, 2), (4096, 4), (16384, 4)])
+def test_element_dw_plan_splits_only_long_m(m, splits):
+    """attn.k (2048 x 1024: 128 output tiles): M is cut into pieces only
+    while each keeps 16 K tiles and the blocks stay within four waves."""
+    spec = _element_specs()["k"]
+    plan = THK.element_dw_plan(m, spec)
+    assert plan.splits == splits
+    assert plan.workspace_bytes == (splits * 2048 * 1024 * 4
+                                    if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (768, 1024)),
+                                         (torch.bfloat16, (100, 64)),
+                                         (torch.bfloat16, (64, 100))])
+def test_element_dw_plan_cuda_core_for_fp32_and_ragged_shapes(dtype, shape):
+    """fp32 keeps full fp32 products on the CUDA cores; rows or columns
+    that are not whole 16-byte chunks cannot be staged by the tensor-core
+    body, and forcing it refuses."""
+    spec = TH.HashedSpec(virtual_shape=shape, compression=0.25, seed=1)
+    assert THK.element_dw_plan(64, spec, dtype) == THK.DwPlan(
+        "cuda_core", 1, 0)
+    with pytest.raises(ValueError, match="tensor-core element_dw"):
+        THK.element_dw_plan(64, spec, dtype, body="tensor_core")
+
+
+def test_element_dw_plan_forced_and_refused():
+    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125)
+    assert THK.element_dw_plan(200, spec, body="tensor_core", splits=3) \
+        == THK.DwPlan("tensor_core", 3, 3 * 768 * 1024 * 4)
+    assert THK.element_dw_plan(200, spec, body="cuda_core") \
+        == THK.DwPlan("cuda_core", 1, 0)
+    with pytest.raises(ValueError):
+        THK.element_dw_plan(200, spec, body="cuda_core", splits=2)
+    with pytest.raises(ValueError):
+        THK.element_dw_plan(200, spec, splits=0)
+    with pytest.raises(ValueError):
+        THK.element_dw_plan(200, spec, body="tf32")
+    with pytest.raises(ValueError):
+        THK.element_dw_plan(200, TH.HashedSpec(
+            virtual_shape=(64, 64), compression=0.25, mode="block",
+            block_shape=(16, 16)))
+
+
+def test_element_dw_plan_is_ignored_on_the_cpu():
+    spec = TH.HashedSpec(virtual_shape=(64, 48), compression=0.25, seed=3,
+                         panel_cols=16)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(20, 64, generator=g)
+    gy = torch.randn(20, 48, generator=g)
+    plan = THK.element_dw_plan(20, spec, torch.bfloat16, splits=4)
+    assert torch.equal(THK.element_dw(x, gy, spec, plan=plan),
+                       THK.hashed_dw_ref(x, gy, spec))
+
+
+def test_counts_report_element_dw_tensor_core_launches():
+    """``kernels.counts`` reports ``element_dw``'s tensor-core launches
+    under ``hashed_dw``; ``reset_counts`` clears them."""
+    from repro_torch import kernels as K
+    K.reset_counts()
+    THK.element_dw.tensor_core = 5
+    assert K.counts()["hashed_dw"]["tensor_core"] == 5
+    K.reset_counts()
+    assert K.counts()["hashed_dw"] == {"launches": 0, "plain_cuda_calls": 0,
+                                       "tensor_core": 0}

@@ -119,6 +119,133 @@ def test_paged_decode_plain_vs_reference_and_pallas(window):
     assert np.all(got[1] == 0.0)          # length-0 row gives zeros
 
 
+@pytest.mark.parametrize("max_pages,page_size,want", [
+    (16, 16, 4), (32, 8, 4), (1, 16, 1), (5, 16, 2), (4, 4, 1), (17, 16, 5),
+    (0, 16, 1)])
+def test_decode_chunks(max_pages, page_size, want):
+    """The split-KV decode's grid: ceil(table positions / 64) chunks a
+    row, at least one."""
+    assert TPA.DECODE_CHUNK == 64
+    assert TPA.decode_chunks(max_pages, page_size) == want
+
+
+# rows of the split-KV cases: empty, one position, the 64-position chunk
+# edges, and the whole table (160 positions: 20 pages of 8, 10 of 16)
+_SPLIT_LENGTHS = [0, 1, 63, 64, 65, 129, 160]
+
+
+def _live_chunks(length, window, max_pages, page_size):
+    """The chunks whose blocks the split-KV decode keeps (csrc
+    ``live_range``; the others exit at once and the merge skips them):
+    those meeting [max(0, length - window) (window > 0, else 0),
+    min(length, max_pages * page_size))."""
+    hi = min(length, max_pages * page_size)
+    lo = max(0, length - window) if window > 0 else 0
+    if hi <= lo:
+        return range(0)
+    return range(lo // TPA.DECODE_CHUNK, -(-hi // TPA.DECODE_CHUNK))
+
+
+def _split_case(rng, page_size, d, hq=4, nkv=2):
+    """A table of private pages in random order per row (trash page 0
+    past each row's length) over a pool of random K/V."""
+    b, maxp = len(_SPLIT_LENGTHS), 160 // page_size
+    npages = b * maxp + 1
+    pk, pv = _pool(rng, npages, page_size, nkv, d)
+    table = (rng.permutation(npages - 1)[: b * maxp] + 1).reshape(b, maxp)
+    lengths = np.array(_SPLIT_LENGTHS, np.int32)
+    used = -(-lengths // page_size)
+    table[np.arange(maxp)[None, :] >= used[:, None]] = 0
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    return q, pk, pv, table.astype(np.int32), lengths
+
+
+@pytest.mark.parametrize("window", [0, 5, 70])
+@pytest.mark.parametrize("page_size", [8, 16])
+def test_decode_live_chunks_cover_what_the_reference_weighs(window,
+                                                            page_size):
+    """With each V row one-hot at its position, the JAX reference's
+    output is every position's softmax weight: each weighted position
+    lies in one of the kernel's live chunks, each live chunk holds one,
+    and a row with no live chunk (length 0) gets zeros."""
+    rng = np.random.default_rng(window + page_size)
+    d = 160
+    q, pk, pv, table, lengths = _split_case(rng, page_size, d)
+    pv[:] = 0.0
+    maxp = table.shape[1]
+    for b in range(len(lengths)):
+        for p in range(maxp):
+            for s in range(page_size):
+                if table[b, p]:
+                    pv[table[b, p], s, :, p * page_size + s] = 1.0
+    w = np.asarray(JREF.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(table), jnp.asarray(lengths), window))
+    chunk = TPA.DECODE_CHUNK
+    for b, length in enumerate(lengths.tolist()):
+        live = _live_chunks(length, window, maxp, page_size)
+        weighed = np.flatnonzero((w[b] > 0).any(axis=0))
+        assert sorted({t // chunk for t in weighed}) == list(live)
+        if not live:
+            assert np.all(w[b] == 0.0)
+        assert np.allclose(w[b].sum(axis=-1), 1.0 if live else 0.0,
+                           atol=1e-5)
+
+
+def _split_kv_merge(q, pk, pv, table, lengths, window):
+    """The split-KV decode's arithmetic in numpy: per live chunk the max,
+    the weights' sum and the weighted V rows in the exp2 domain (scale x
+    log2(e) folded into q), merged in chunk order."""
+    b, hq, d = q.shape
+    _, ps, nkv, _ = pk.shape
+    g, maxp, chunk = hq // nkv, table.shape[1], TPA.DECODE_CHUNK
+    k = pk[table].reshape(b, maxp * ps, nkv, d)
+    v = pv[table].reshape(b, maxp * ps, nkv, d)
+    out = np.zeros_like(q)
+    qs = q * np.float32(np.log2(np.e) / np.sqrt(d))
+    for r, length in enumerate(lengths.tolist()):
+        lo = max(0, length - window) if window > 0 else 0
+        hi = min(length, maxp * ps)
+        for h in range(hq):
+            parts = []
+            for c in _live_chunks(length, window, maxp, ps):
+                t = np.arange(c * chunk, (c + 1) * chunk)
+                t = t[(t >= lo) & (t < hi)]
+                s = k[r, t, h // g] @ qs[r, h]
+                m = s.max()
+                p = np.exp2(s - m)
+                parts.append((m, p.sum(), p @ v[r, t, h // g]))
+            if parts:
+                mx = max(m for m, _, _ in parts)
+                l = sum(lc * np.exp2(m - mx) for m, lc, _ in parts)
+                acc = sum(a * np.exp2(m - mx) for m, _, a in parts)
+                out[r, h] = acc / l
+    return out
+
+
+@pytest.mark.parametrize("window", [0, 5, 70])
+@pytest.mark.parametrize("page_size", [8, 16])
+def test_decode_split_kv_merge_vs_reference_and_pallas(window, page_size):
+    """Chunks of 64 positions merged in chunk order (the kernel's two
+    passes, on the rows of ``_SPLIT_LENGTHS``) give the JAX reference's
+    and the Pallas kernel's output within 1e-5, and so does the port's
+    plain version."""
+    rng = np.random.default_rng(10 + window + page_size)
+    q, pk, pv, table, lengths = _split_case(rng, page_size, 16)
+    args = (jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+            jnp.asarray(table), jnp.asarray(lengths))
+    want_ref = np.asarray(JREF.paged_attention_ref(*args, window))
+    want_pl = np.asarray(JPA.paged_decode_attention(*args, jnp.int32(window),
+                                                    interpret=True))
+    got = _split_kv_merge(q, pk, pv, table, lengths, window)
+    np.testing.assert_allclose(got, want_ref, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want_pl, rtol=0, atol=ATOL)
+    assert np.all(got[0] == 0.0)
+    plain = TPA.paged_decode_attention(_t(q), _t(pk), _t(pv), _t(table),
+                                       _t(lengths), window).numpy()
+    np.testing.assert_allclose(plain, want_ref, rtol=0, atol=ATOL)
+
+
 # ---------------------------------------------------------------------------
 # ragged prefill
 # ---------------------------------------------------------------------------

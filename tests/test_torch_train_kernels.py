@@ -95,6 +95,44 @@ def test_element_dw_plain_vs_pallas_and_oracle(panel_cols):
     _close(got, want_ref)
 
 
+@pytest.mark.parametrize("panel_cols", [0, 128])
+@pytest.mark.parametrize("use_sign", [True, False])
+def test_element_dw_map_and_segment_sums_vs_pallas(panel_cols, use_sign):
+    """``element_dw``'s inverse map (``element_segments``): every virtual
+    position once, grouped by the JAX package's bucket, ascending inside a
+    bucket, bit 31 set exactly where the JAX sign is -1.  Summing
+    xi * (x^T g) over it in map order, as the kernel's segment pass does,
+    gives the Pallas kernel's dw."""
+    js, ts = _specs(virtual_shape=(64, 256), compression=0.125, seed=23,
+                    panel_cols=panel_cols, use_sign=use_sign)
+    order, offsets = THK.element_segments(ts, "cpu")
+    assert order.dtype == offsets.dtype == torch.int32
+    o = order.numpy().astype(np.int64)
+    pos, neg = o & 0x7FFFFFFF, o < 0
+    jidx, jsgn = JH.element_indices(js, jnp.arange(64)[:, None],
+                                    jnp.arange(256)[None, :])
+    jidx = np.asarray(jidx).reshape(-1)
+    jsgn = np.asarray(jsgn).reshape(-1)
+    assert np.array_equal(np.sort(pos), np.arange(64 * 256))
+    offs = offsets.numpy()
+    assert offs[0] == 0 and offs[-1] == 64 * 256
+    bucket = np.repeat(np.arange(js.num_buckets), np.diff(offs))
+    assert np.array_equal(jidx[pos], bucket)
+    same = bucket[1:] == bucket[:-1]
+    assert np.all(pos[1:][same] > pos[:-1][same])
+    assert np.array_equal(neg, jsgn[pos] < 0)
+    assert neg.any() == use_sign
+    rng = np.random.default_rng(7 + panel_cols)
+    x = _rand(rng, 16, 64)
+    g = _rand(rng, 16, 256)
+    prod = (x.astype(np.float64).T @ g).reshape(-1)
+    dw = np.zeros(js.num_buckets)
+    np.add.at(dw, bucket, np.where(neg, -prod[pos], prod[pos]))
+    want_pl = JHK.element_dw(jnp.asarray(x), jnp.asarray(g), js,
+                             block=(8, 32, 64), interpret=True)
+    _close(dw, want_pl)
+
+
 @pytest.mark.parametrize("block_shape", [(32, 64), (64, 32)])
 def test_block_fwd_transpose_dw_plain_vs_pallas_and_oracle(block_shape):
     js, ts = _specs(virtual_shape=(128, 192), compression=0.25, seed=7,
