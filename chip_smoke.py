@@ -10,23 +10,33 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
    at once);
 3. count the tensor-core instructions in the SASS of every tensor-core
    function (the hashed GEMMs, both ``dw`` products, the bf16 prefill)
-   with ``cuobjdump``, where it exists; hold each kernel against its
-   plain PyTorch version on the card at the full-width qwen3-1.7b-hashed8
-   shapes (the forward GEMM at M = 1 to 1024, the backward and
+   with ``cuobjdump``, where it exists, and the instructions per virtual
+   weight in the product loop of the decode-size GEMM (the gemv body;
+   printed beside the count its bound takes, which the hash's definition
+   fixes);
+   hold each kernel against its plain PyTorch version on the card at the
+   full-width qwen3-1.7b-hashed8 shapes (the forward GEMM at M = 1 to
+   1024 and at M = 8 for attn.k and ffn.up, a one-hot x giving rows of
+   the materialized V bitwise at M = 1 and 8; the backward and
    block-mode kernels at M = 1024, the rows of one B=4 x S=256 training
-   step; the paged decode at B=8 and at serving's B=4; each ``dw``
-   kernel, each tensor-core GEMM and the decode launched twice and
-   bitwise equal to itself; each GEMM's and ``dw`` kernel's plan
-   printed, and both ``dw`` kernels planned on the tensor cores at every
-   projection), and time kernel, plain version and a PyTorch library
-   yardstick with CUDA events (median of 20, the L2 flushed before each
-   launch, the host ahead of the card), both GEMM bodies at M = 8 to
-   1024, both bodies of each ``dw`` kernel and their split counts;
+   step; the paged decode at B=8 and at serving's B=4; top-k at B = 1, 8
+   and 64, bitwise; each ``dw`` kernel, each tensor-core and gemv GEMM
+   and the decode launched twice and bitwise equal to itself; each
+   GEMM's and ``dw`` kernel's plan printed, and both ``dw`` kernels
+   planned on the tensor cores at every projection), and time kernel,
+   plain version and a PyTorch library yardstick with CUDA events
+   (median of 20, the L2 flushed before each launch, the host ahead of
+   the card), the GEMM bodies forced at M = 1 to 1024 (gemv up to 16),
+   both bodies of each ``dw`` kernel and their split counts, top-k's
+   cluster sizes;
 4. serve qwen3-1.7b-hashed8 at full width (28 layers, bf16, seeded
    weights) through the paged engine: 8 requests, every serving kernel's
-   launch count > 0, every prefill launch on the tensor-core body and no
-   plain version run on the card; then one decode step on the kernel
-   path against the bf16 plain path (the limit), both also measured
+   launch count > 0, every element GEMM of at most 16 rows on the gemv
+   body and every larger one and every prefill launch on the tensor-core
+   body, every top-k with its rows resident in its cluster's shared
+   memory, and no plain version run on the card; then one decode step on
+   the kernel path against the bf16 plain path (the limit), both also
+   measured
    against an fp32 plain path (logit error and argmax agreement);
 5. profile a decode step and a prefill dispatch;
 6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
@@ -58,12 +68,14 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL_BF16 = 1e-2                # max |kernel - plain| / max |plain|, bf16
 TOL_LOGITS = 5e-2              # whole-model logits, 28 bf16 layers
 TOL_DW = 1e-4                  # fp32 dw from bf16 inputs: sum order only
+TOL_FP32 = 1e-4                # fp32 gemv (fp32 products): sum order only
 TOL_LOSS = 1e-2                # training loss, kernel vs plain path (rel)
 TOL_GRAD = 0.15                # bank grads: max |d| / max |plain| ...
 MIN_COS = 0.99                 # ... and cosine similarity, 28 bf16 layers
                                # forward and back, bf16 scatter in the plain
 M_TRAIN = 1024                 # rows of one B=4 x S=256 training step
-SWEEP_M = (8, 16, 64, 256, 1024)   # both GEMM bodies timed, forced
+SWEEP_M = (1, 8, 16, 64, 256, 1024)  # GEMM bodies timed, forced
+LANES_PER_CLOCK = 132 * 128    # H100 SXM: SMs x instructions a clock an SM
 SERVE_KERNELS = ("hashed_matmul", "paged_decode", "paged_prefill",
                  "topk_mask")
 
@@ -73,9 +85,14 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float,
+             issue_ms: float = 0.0):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over their peak rate (the products' flops, or with
+    ``issue_ms`` the instructions the work needs over the SMs' issue
+    rate), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = max(flops / peak_flops * 1e3, issue_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -135,6 +152,7 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as TPA
     from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                      paged_decode_attention)
+    from repro_torch.kernels import topk as TTK
     from repro_torch.kernels.topk import topk_mask, topk_mask_ref
     from repro_torch.core import hashed as H
     from repro_torch.models import build
@@ -178,22 +196,36 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # -- 3a. hashed GEMM -------------------------------------------------------
-    # M = 1 and 8 are decode, 256 a B=4 x S=64 prefill dispatch, 1024 a
-    # training step; every bf16 product of more than 8 rows runs the
-    # tensor-core body, launched twice and bitwise equal to itself.  At
-    # M in SWEEP_M both bodies are timed, forced, for the plan's threshold.
+    # M = 1 and 8 are decode and 16 a short prefill (the gemv body), 256 a
+    # B=4 x S=64 prefill dispatch, 1024 a training step (the tensor-core
+    # body); every gemv and tensor-core product launched twice and bitwise
+    # equal to itself, at M <= 8 a one-hot x giving rows of V bitwise and
+    # the fp32 gemv within TOL_FP32.  At M in SWEEP_M the bodies are
+    # timed, forced (gemv up to 16 rows), for the plan's threshold.  The
+    # gemv bound counts the instructions each weight needs by the hash's
+    # definition (gemv_ops_per_weight) over the SMs' issue rate at the
+    # card's largest SM clock; the SASS count of the kernel's own product
+    # loop is printed beside it.
     print("[3] kernels against their plain versions on the card", flush=True)
-    for slot in ("q", "out"):
-        path = ("layers", "attn", "q", "w") if slot == "q" \
-            else ("layers", "ffn", "out", "w")
-        spec = specs[path]
+    ipw = gemv_instructions(_build)
+    mhz = sm_clocks()
+    print(f"    SM clock {mhz[0]} MHz now, {mhz[1]} MHz at most (nvidia-smi "
+          f"clocks.sm, clocks.max.sm); the gemv bound takes the largest",
+          flush=True)
+    gemm_slots = {"q": ("layers", "attn", "q", "w"),
+                  "k": ("layers", "attn", "k", "w"),
+                  "up": ("layers", "ffn", "in", "w"),
+                  "out": ("layers", "ffn", "out", "w")}
+    for slot, ms_ in (("q", (1, 8, 16, 64, 256, 1024)),
+                      ("out", (1, 8, 16, 64, 256, 1024)),
+                      ("k", (8,)), ("up", (8,))):
+        spec = specs[gemm_slots[slot]]
+        kp = spec.buckets_per_panel
         w = randn(spec.num_buckets) * (1.0 / spec.rows ** 0.5)
         v_dense = H.materialize(w, spec, dtype=torch.bfloat16)
-        for m in (1, 8, 16, 64, 256, 1024):
+        for m in ms_:
             x = randn(m, spec.rows)
-            # the entry point pads M = 1 to the 8-row block
-            plan = THK.gemm_plan(max(m, 8), spec.rows, spec.cols, "element",
-                                 x.dtype)
+            plan = THK.gemm_plan(m, spec.rows, spec.cols, "element", x.dtype)
             got = ops.hashed_matmul(x, w, spec)
             ref = hashed_matmul_ref(x, w, spec)
             torch.cuda.synchronize()
@@ -201,25 +233,36 @@ def main() -> int:
             ok = rel <= TOL_BF16
             note = repeat_note(plan, lambda: ops.hashed_matmul(x, w, spec),
                                got)
+            if m <= 8:
+                note += one_hot_note(THK, w, spec, v_dense, m, gen)
+                note += fp32_note(THK, x, w, spec)
             ms = timer(lambda: ops.hashed_matmul(x, w, spec))
             plain = timer(lambda: hashed_matmul_ref(x, w, spec))
             lib = timer(lambda: torch.matmul(x, v_dense))
             nbytes = 2 * (m * spec.rows + spec.num_buckets + m * spec.cols)
+            issue, need = 0.0, 0
+            if plan.body == "gemv":
+                need = gemv_ops_per_weight(m, spec.use_sign)
+                issue = need * spec.rows * spec.cols \
+                    / (LANES_PER_CLOCK * mhz[1] * 1e6) * 1e3
             b, by = bound_ms(nbytes, 2.0 * m * spec.rows * spec.cols,
-                             BF16_FLOPS)
+                             BF16_FLOPS, issue)
             key = f"hashed_matmul {slot} M={m}"
-            print(f"    {key}: {spec.rows}x{spec.cols} Kp="
-                  f"{spec.buckets_per_panel} max_abs_err={err:.3e} "
-                  f"rel={rel:.2e} (tol {TOL_BF16}){note} "
-                  f"{'ok' if ok else 'FAIL'}"
+            print(f"    {key}: {spec.rows}x{spec.cols} Kp={kp} "
+                  f"max_abs_err={err:.3e} rel={rel:.2e} (tol {TOL_BF16})"
+                  f"{note} {'ok' if ok else 'FAIL'}"
                   f"  ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f}"
-                  f" bound_ms={b:.5f} ({by})\n      plan {plan_str(plan)}",
-                  flush=True)
+                  f" bound_ms={b:.5f} ({by}"
+                  + (f"; issue {issue:.5f} at {need} instructions a "
+                     f"weight, the kernel's loop {ipw.get(plan.bm, 0):.2f}"
+                     if issue else "")
+                  + f")\n      plan {plan_str(plan)}", flush=True)
             if not ok:
                 fail(f"{key} disagrees with its plain version")
-            if m in SWEEP_M:
+            if m in SWEEP_M or slot in ("k", "up"):
                 bodies = {}
-                for body in ("tensor_core", "cuda_core"):
+                names = ("gemv",) if m <= THK.GEMV_MAX_ROWS else ()
+                for body in names + ("tensor_core", "cuda_core"):
                     forced = THK.gemm_plan(m, spec.rows, spec.cols,
                                            "element", x.dtype, body=body)
                     bodies[body] = timer(lambda: THK.element_matmul(
@@ -229,6 +272,7 @@ def main() -> int:
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                 library_ms=lib, bound_ms=b, bound_by=by,
                                 body=plan.body)
+        del v_dense
 
     # -- 3b. paged decode ------------------------------------------------------
     # B=8 rows of 0 to 256 positions (a length-0 row on the trash page) and
@@ -340,34 +384,59 @@ def main() -> int:
                                     library_ms=lib, bound_ms=b, bound_by=by)
 
     # -- 3d. top-k -------------------------------------------------------------
+    # B = 8 holds chip_smoke's special rows (ties at the threshold, +-0.0
+    # ties, k disabled both ways); B = 1 and 64 random rows with edge k.
+    # The default plan and every cluster size, each bitwise equal to the
+    # plain version, then timed at k = 50.
     V = cfg.vocab_size
-    logits = torch.randn(8, V, generator=gen, device=dev)
-    logits[2, :100] = 3.5                      # ties at the threshold
-    logits[3, ::2] = 0.0                       # +-0.0 at the threshold
-    logits[3, 1::2] = -0.0
-    logits[3, :10] = 1.0
-    kvec = torch.tensor([0, 1, 50, 50, V, 20, 50, 7], dtype=torch.int32,
-                        device=dev)
-    got = topk_mask(logits, kvec)
-    ref = topk_mask_ref(logits, kvec)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(got, ref))
-    err = (got - ref).abs().max().item()
-    print(f"    topk_mask B=8 V={V} k={kvec.tolist()}: bitwise equal={same} "
-          f"(tol 0: survivors pass through) {'ok' if same else 'FAIL'}",
-          flush=True)
-    if not same:
-        fail("topk_mask disagrees with its plain version")
-    k50 = torch.full((8,), 50, dtype=torch.int32, device=dev)
-    ms = timer(lambda: topk_mask(logits, k50))
-    plain = timer(lambda: topk_mask_ref(logits, k50))
-    lib = timer(lambda: torch.topk(logits, 50, dim=-1))
-    b, by = bound_ms(2 * logits.numel() * 4, 0.0, FP32_FLOPS)
-    print(f"    topk_mask B=8 k=50 ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib:.4f} bound_ms={b:.5f} ({by})", flush=True)
-    results["topk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=b, bound_by=by)
-    del pk, pv, v_dense, kgp, vgp
+    for B in (1, 8, 64):
+        logits = torch.randn(B, V, generator=gen, device=dev)
+        if B == 8:
+            logits[2, :100] = 3.5                  # ties at the threshold
+            logits[3, ::2] = 0.0                   # +-0.0 at the threshold
+            logits[3, 1::2] = -0.0
+            logits[3, :10] = 1.0
+            kvec = torch.tensor([0, 1, 50, 50, V, 20, 50, 7],
+                                dtype=torch.int32, device=dev)
+        else:
+            logits[:, :100] = torch.where(
+                torch.arange(B, device=dev)[:, None] % 2 == 0, 3.5,
+                logits[:, :100])
+            kvec = torch.tensor(([50, 1, V - 1, 0] * B)[:B],
+                                dtype=torch.int32, device=dev)
+        ref = topk_mask_ref(logits, kvec)
+        got = topk_mask(logits, kvec)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        err = (got - ref).abs().max().item()
+        plan = TTK.topk_plan(B, V, logits.dtype)
+        print(f"    topk_mask B={B} V={V} k={kvec.tolist()[:8]}: bitwise "
+              f"equal={same} (tol 0: survivors pass through) "
+              f"{'ok' if same else 'FAIL'}\n      plan {plan}", flush=True)
+        if not same:
+            fail(f"topk_mask B={B} disagrees with its plain version")
+        k50 = torch.full((B,), 50, dtype=torch.int32, device=dev)
+        ms = timer(lambda: topk_mask(logits, k50))
+        plain = timer(lambda: topk_mask_ref(logits, k50))
+        lib = timer(lambda: torch.topk(logits, 50, dim=-1))
+        b, by = bound_ms(2 * logits.numel() * 4, 0.0, FP32_FLOPS)
+        print(f"    topk_mask B={B} k=50 ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} bound_ms={b:.5f} ({by})", flush=True)
+        sweep = {}
+        for cs in TTK.CLUSTER_SIZES:
+            forced = TTK.topk_plan(B, V, logits.dtype, cluster=cs)
+            if not torch.equal(topk_mask(logits, kvec, plan=forced), ref):
+                fail(f"topk_mask B={B} with {forced} disagrees with its "
+                     f"plain version")
+            sweep[f"{cs}" + ("" if forced.resident else "/s")] = \
+                timer(lambda: topk_mask(logits, k50, plan=forced))
+        print(f"      CTAs a row forced (/s: streamed), all bitwise: "
+              f"{bodies_str(sweep)}", flush=True)
+        results[f"topk_mask B={B}"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain, library_ms=lib,
+                                           bound_ms=b, bound_by=by)
+    results["topk_mask"] = results["topk_mask B=8"]
+    del pk, pv, kgp, vgp
     torch.cuda.empty_cache()
 
     # -- 3e. the training kernels: dx, dw and block mode at M = 1024 ----------
@@ -473,7 +542,7 @@ def main() -> int:
         # element dx = g @ V^T
         w = randn(spec.num_buckets) * scale
         v_dense = H.materialize(w, spec, dtype=torch.bfloat16)
-        plan = THK.gemm_plan(m, c, r, "element", gy.dtype)
+        plan = THK.gemm_plan(m, c, r, "element", gy.dtype, transpose=True)
         got = THK.element_matmul_t(gy, w, spec)
         check(f"hashed_matmul_t {slot} M={m}", got,
               THK.hashed_matmul_t_ref(gy, w, spec), TOL_BF16,
@@ -500,7 +569,8 @@ def main() -> int:
               2 * m * (r + c) + bank_bytes, gemm_flops,
               repeat_note(plan, lambda: THK.block_matmul(x, wb, spec_b), got),
               plan)
-        plan = THK.gemm_plan(m, c, r, "block", gy.dtype, block_cols=bcols)
+        plan = THK.gemm_plan(m, c, r, "block", gy.dtype, block_cols=bcols,
+                             transpose=True)
         got = THK.block_matmul(gy, wb, spec_b, transpose=True)
         check(f"block_matmul_t {slot} M={m}", got,
               THK.hashed_matmul_t_ref(gy, wb, spec_b), TOL_BF16,
@@ -735,13 +805,17 @@ def main() -> int:
         "topk_mask": ("topk_mask", "serve", tpu + "topk.py:70"),
     }
     # more timed shapes of a kernel, beside its row's case
-    more = {"hashed_matmul": ["hashed_matmul out M=256",
+    more = {"hashed_matmul": ["hashed_matmul out M=1",
+                              "hashed_matmul q M=8", "hashed_matmul k M=8",
+                              "hashed_matmul up M=8",
+                              "hashed_matmul out M=256",
                               f"hashed_matmul out M={M_TRAIN}",
                               f"hashed_matmul q M={M_TRAIN}"],
             "hashed_matmul_t": [f"hashed_matmul_t q M={M_TRAIN}"],
             "hashed_dw": [f"hashed_dw q M={M_TRAIN}",
                           f"hashed_dw k M={M_TRAIN}"],
             "paged_decode": ["paged_decode B=4"],
+            "topk_mask": ["topk_mask B=1", "topk_mask B=64"],
             "block_matmul": [f"block_matmul_t out M={M_TRAIN}",
                              f"block_matmul q M={M_TRAIN}",
                              f"block_matmul_t q M={M_TRAIN}"],
@@ -804,15 +878,156 @@ def dw_sweep(kernel, plan_fn, x, gy, spec, timer, splits) -> None:
 
 
 def repeat_note(plan, fn, first) -> str:
-    """A tensor-core product launched again must give the same bits."""
-    if plan.body != "tensor_core":
+    """A tensor-core or gemv product launched again must give the same
+    bits."""
+    if plan.body not in ("tensor_core", "gemv"):
         return ""
     again = fn()
     torch.cuda.synchronize()
     if not torch.equal(first, again):
-        fail("a tensor-core GEMM is not bitwise equal to itself across "
-             "launches")
+        fail(f"a {plan.body} GEMM is not bitwise equal to itself across "
+             f"launches")
     return " bitwise across two launches=True"
+
+
+def one_hot_note(THK, w, spec, v_dense, m, gen) -> str:
+    """Row r of x one-hot at virtual row i_r: the element GEMM returns row
+    i_r of V (``H.materialize``), bitwise."""
+    rows = torch.randperm(spec.rows, generator=gen, device=w.device)[:m]
+    x = torch.zeros(m, spec.rows, dtype=w.dtype, device=w.device)
+    x[torch.arange(m, device=w.device), rows] = 1
+    same = bool(torch.equal(THK.element_matmul(x, w, spec), v_dense[rows]))
+    if not same:
+        fail(f"a one-hot x at M={m} does not give rows of V bitwise")
+    return " one-hot rows of V bitwise=True"
+
+
+def fp32_note(THK, x, w, spec) -> str:
+    """The gemv body on fp32 x and bank keeps fp32 products: within
+    TOL_FP32 of the fp32 plain version."""
+    x32, w32 = x.float(), w.float()
+    got = THK.element_matmul(x32, w32, spec)
+    _, rel = rel_err(got, THK.hashed_matmul_ref(x32, w32, spec))
+    if rel > TOL_FP32:
+        fail(f"the fp32 gemv body at M={x.shape[0]} is at rel {rel:.2e} of "
+             f"its plain version (tol {TOL_FP32})")
+    return f" fp32 rel={rel:.2e} (tol {TOL_FP32})"
+
+
+def sm_clocks():
+    """(current, largest) SM clock in MHz, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    now, top = (float(v) for v in out.strip().splitlines()[0].split(","))
+    return now, top
+
+
+def gemv_ops_per_weight(m: int, signed: bool) -> int:
+    """Instructions one virtual weight of an m-row hashed GEMV needs by
+    the hash's definition (csrc/common.cuh), whatever a kernel issues:
+    for the bucket and, signed, for the sign, a hash of nine (the xor of
+    the row and column keys, then mix32's three shifts, three xors and
+    two multiplies); bucket_mod's four (multiply-high, multiply-add,
+    subtract, min); the gather's address and load; the sign applied and
+    the bf16 value widened to fp32; one FFMA for each row.  The issue
+    term of the gemv bound."""
+    return 9 * (2 if signed else 1) + 4 + 2 + (2 if signed else 1) + m
+
+
+def gemv_instructions(build_mod) -> dict:
+    """{row block MT: SASS instructions per virtual weight} of the gemv
+    body (bf16, signed), from its product loop in the SASS (the unrolled
+    K step) over the weights one iteration computes: its FFMA count over
+    MT, one FFMA per row and weight; {} without cuobjdump.  Prints each
+    loop's instruction mix.  A diagnostic of the kernel's overhead over
+    :func:`gemv_ops_per_weight`: it sets no bound."""
+    import re
+    tool = _cuobjdump(build_mod)
+    if not tool:
+        print("    SASS: cuobjdump not available, the gemv bound counts no "
+              "instructions", flush=True)
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build_mod.lib_path(
+        "hashed_matmul"))], capture_output=True, text=True,
+        timeout=120).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = chunk.split("\n", 1)[0].strip()
+        m = re.search(r"hashed_gemvI13__nv_bfloat16Li(\d+)ELb1E", fname)
+        if not m:
+            continue
+        size, ops = _inner_loop(chunk)
+        mt = int(m.group(1))
+        weights = ops.get("FFMA", 0) // mt
+        if not weights:
+            continue
+        out[mt] = size / weights
+        mix = ", ".join(f"{k} {v}" for k, v in sorted(
+            ops.items(), key=lambda kv: -kv[1])[:12])
+        print(f"    SASS gemv M<={mt}: inner loop {size} instructions for "
+              f"{weights} virtual weights = {out[mt]:.2f} a weight ({mix})",
+              flush=True)
+    return out
+
+
+def _inner_loop(chunk):
+    """(instructions, {opcode: count}) of the product loop in one
+    function's SASS: of the loops (backward branches) without a barrier
+    (an outer loop stages x between barriers) holding the most FFMA
+    instructions, the longest (the gemv body compiles one for bank values
+    read from global memory only and a longer one for values held in
+    shared memory, which the plan runs at qwen3-1.7b's widths)."""
+    import re
+    addr, ins, label = [], [], {}
+    for line in chunk.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            label[m.group(1)] = len(ins)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr.append(int(m.group(1), 16))
+            ins.append(m.group(2))
+    at = {a: i for i, a in enumerate(addr)}
+    best = (0, {})
+    for i, text in enumerate(ins):
+        if "BRA" not in text:
+            continue
+        m = re.search(r"\((\.L_x_\d+)\)", text)
+        target = label.get(m.group(1)) if m else None
+        if target is None:
+            m = re.search(r"BRA\s+(?:`\()?0x([0-9a-f]+)", text)
+            target = at.get(int(m.group(1), 16)) if m else None
+        if target is None or target > i:
+            continue
+        ops = {}
+        for t in ins[target:i + 1]:
+            op = re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+            ops[op] = ops.get(op, 0) + 1
+        if "BAR.SYNC.DEFER_BLOCKING" in ops or "BAR.SYNC" in ops:
+            continue
+        size, fma = i + 1 - target, ops.get("FFMA", 0)
+        if (fma, size) > (best[1].get("FFMA", 0), best[0]):
+            best = (size, ops)
+    return best
+
+
+def _cuobjdump(build_mod) -> str:
+    import shutil
+    tool = shutil.which("cuobjdump") or ""
+    cand = Path(build_mod.nvcc_path()).with_name("cuobjdump")
+    if not tool and cand.exists():
+        tool = str(cand)
+    if not tool:
+        try:
+            import triton
+            cand = Path(triton.__file__).parent / "backends/nvidia/bin" \
+                / "cuobjdump"
+            tool = str(cand) if cand.exists() else ""
+        except ImportError:
+            pass
+    return tool
 
 
 # library -> the functions that must run on the tensor cores (name part)
@@ -828,19 +1043,7 @@ def check_sass(build_mod) -> None:
     function, where cuobjdump exists; fail if one of them is missing or
     has none."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or ""
-    cand = Path(build_mod.nvcc_path()).with_name("cuobjdump")
-    if not tool and cand.exists():
-        tool = str(cand)
-    if not tool:
-        try:
-            import triton
-            cand = Path(triton.__file__).parent / "backends/nvidia/bin" \
-                / "cuobjdump"
-            tool = str(cand) if cand.exists() else ""
-        except ImportError:
-            pass
+    tool = _cuobjdump(build_mod)
     if not tool:
         print("    SASS: cuobjdump not available, tensor-core instructions "
               "not counted", flush=True)
@@ -878,14 +1081,32 @@ def block_config(C, path: str):
 
 
 def check_counts(counts, kernels, what: str) -> None:
-    """Every kernel of a path launched, every launch of one that has a
-    tensor-core body on that body (the paths run bf16 at full width), no
+    """Every kernel of a path launched; every element GEMM of at most 16
+    rows (decode: at most 8) on the gemv body and every other launch of a
+    kernel that has a tensor-core body on that body (the paths run bf16 at
+    full width);
+    every top-k with its rows resident in its cluster's shared memory; no
     plain version run on the card."""
     for name in kernels:
         c = counts[name]
         if c["launches"] <= 0:
             fail(f"kernel {name} was not launched on the {what} path")
-        if c.get("tensor_core", c["launches"]) != c["launches"]:
+        if name == "hashed_matmul":
+            small = c["small"]
+            if c["gemv"] != small:
+                fail(f"{small - c['gemv']} of the {small} element GEMMs of "
+                     f"at most 16 rows on the {what} path did not run the "
+                     f"gemv body")
+            if c["tensor_core"] != c["launches"] - small:
+                fail(f"{c['launches'] - small - c['tensor_core']} element "
+                     f"GEMMs of more than 16 rows on the {what} path did "
+                     f"not run the tensor-core body")
+        elif name == "topk_mask":
+            if c["resident"] != c["launches"]:
+                fail(f"{c['launches'] - c['resident']} top-k launches on "
+                     f"the {what} path did not hold their rows in their "
+                     f"cluster's shared memory")
+        elif c.get("tensor_core", c["launches"]) != c["launches"]:
             fail(f"{name} ran its CUDA-core body "
                  f"{c['launches'] - c['tensor_core']} times on the {what} "
                  f"path")

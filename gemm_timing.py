@@ -1,4 +1,4 @@
-"""Time the hashed GEMM and bank-gradient kernels of one checkout on the card.
+"""Time the hashed GEMM, bank-gradient and top-k kernels of one checkout.
 
     python3 gemm_timing.py [--src DIR] [--label NAME]
 
@@ -8,10 +8,14 @@ checkout unpacked beside this one (``git archive``): run it on both
 trees back to back on the same card, alternating (A, B, B, A), to
 compare them.  Shapes: qwen3-1.7b-hashed8 at full width, ``attn.q``
 (2048 x 2048) and ``ffn.out`` (6144 x 2048), element mode forward at
-M = 8, 256 and 1024, the element transpose (``dx``), the block-mode
-forward and transpose (128 x 128 tiles) at M = 1024, and the bank
-gradients of both modes (``element_dw``, ``block_dw``) at M = 1024 at
-``attn.q``, ``attn.k`` (2048 x 1024) and ``ffn.out``.  Each time is the
+M = 1, 8, 256 and 1024 (each tree's default body: decode size runs the
+gemv body where the tree has one), the element transpose (``dx``), the
+block-mode forward and transpose (128 x 128 tiles) at M = 1024; the
+element forward at M = 8 at ``attn.k`` (2048 x 1024) and ``ffn.up``
+(2048 x 6144); the bank gradients of both modes (``element_dw``,
+``block_dw``) at M = 1024 at ``attn.q``, ``attn.k`` and ``ffn.out``;
+the sampler's top-k mask at B = 1, 8 and 64 rows of 151936 fp32 logits,
+k = 50.  Each time is the
 median over 20 launches of CUDA events around one wrapper call, the L2
 flushed before each and the host ahead of the card (a device-side sleep
 after the flush), so Python's launch cost is not counted.  With
@@ -93,7 +97,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    _build.build(["hashed_matmul", "hashed_dw", "hashed_block"])
+    _build.build(["hashed_matmul", "hashed_dw", "hashed_block", "topk"])
+    from repro_torch.kernels.topk import topk_mask
     dev = torch.device("cuda")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -113,7 +118,7 @@ def main() -> int:
         w = randn(spec.num_buckets) * r ** -0.5
         wb = randn(*spec_b.real_param_shape()) * r ** -0.5
         cases = []
-        for m in (8, 256, 1024):
+        for m in (1, 8, 256, 1024):
             x = randn(m, r)
             cases.append((f"element fwd {slot} M={m}",
                           lambda x=x: THK.element_matmul(x, w, spec)))
@@ -127,6 +132,13 @@ def main() -> int:
              lambda: THK.block_matmul(gy, wb, spec_b, transpose=True)),
         ]
         report(cases, args, flush)
+    for slot, path in (("k", ("layers", "attn", "k", "w")),
+                       ("up", ("layers", "ffn", "in", "w"))):
+        spec = specs[path]
+        w = randn(spec.num_buckets) * spec.rows ** -0.5
+        x = randn(8, spec.rows)
+        report([(f"element fwd {slot} M=8",
+                 lambda: THK.element_matmul(x, w, spec))], args, flush)
     for slot in ("q", "k", "out"):
         path = {"q": ("layers", "attn", "q", "w"),
                 "k": ("layers", "attn", "k", "w"),
@@ -137,6 +149,11 @@ def main() -> int:
                  lambda: THK.element_dw(x, gy, spec)),
                 (f"block dw {slot} M=1024",
                  lambda: THK.block_dw(x, gy, spec_b))], args, flush)
+    for b in (1, 8, 64):
+        logits = torch.randn(b, 151936, generator=gen, device=dev)
+        k50 = torch.full((b,), 50, dtype=torch.int32, device=dev)
+        report([(f"topk B={b} k=50", lambda: topk_mask(logits, k50))], args,
+               flush)
     return 0
 
 

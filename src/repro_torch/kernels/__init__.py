@@ -49,6 +49,9 @@ def reset_counts() -> None:
         for plain in plains:
             plain.cuda_calls = 0
     block_matmul.transposed = 0
+    element_matmul.gemv = element_matmul.tensor_core = 0
+    element_matmul.small = 0
+    topk_mask.resident = 0
     element_dw.tensor_core = 0
     block_dw.tensor_core = 0
     paged_prefill_attention.tensor_core = 0
@@ -59,11 +62,17 @@ def counts() -> dict:
     its plain versions on CUDA tensors}}; ``block_matmul`` also reports
     how many of its launches were transposed, ``hashed_dw``
     (``element_dw``), ``block_dw`` and ``paged_prefill`` how many ran
-    their tensor-core body."""
+    their tensor-core body, ``hashed_matmul`` (``element_matmul``) how
+    many ran the tensor-core and the gemv body and how many had at most
+    ``GEMV_MAX_ROWS`` rows (``small``), ``topk_mask`` how many held
+    every row in its cluster's shared memory (``resident``)."""
     out = {name: {"launches": wrapper.launches,
                   "plain_cuda_calls": sum(p.cuda_calls for p in plains)}
            for name, (wrapper, plains, _) in KERNELS.items()}
     out["block_matmul"]["transposed"] = block_matmul.transposed
+    for body in ("tensor_core", "gemv", "small"):
+        out["hashed_matmul"][body] = getattr(element_matmul, body)
+    out["topk_mask"]["resident"] = topk_mask.resident
     out["hashed_dw"]["tensor_core"] = element_dw.tensor_core
     out["block_dw"]["tensor_core"] = block_dw.tensor_core
     out["paged_prefill"]["tensor_core"] = paged_prefill_attention.tensor_core

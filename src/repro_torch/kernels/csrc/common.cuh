@@ -1,6 +1,7 @@
 // Shared helpers of the repro_torch CUDA kernels: element conversions,
 // the murmur3 hash of core/hashing.py in native uint32_t wrap-around
-// arithmetic, a warp sum, and 16-byte cp.async copies into shared memory.
+// arithmetic, the exact bucket reduction, a warp sum, and 16-byte cp.async
+// copies into shared memory.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,6 +34,22 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x *= kM2;
   x ^= x >> 16;
   return x;
+}
+
+// h mod kp for every uint32 h and every kp >= 1, without a division:
+// with magic = floor((2^32 - 1) / kp), q = mulhi(h, magic) is h / kp
+// rounded down, or one less (magic >= 2^32 / kp - 1, so the product
+// misses h / kp by under h / 2^32 < 1); r = h - q kp is then h mod kp or
+// h mod kp + kp, and the unsigned min of r and r - kp (which wraps past
+// 2^32 when r < kp) is h mod kp.  Four integer instructions and no branch
+// (kp a power of two or not), where `%` by a runtime divisor takes a
+// reciprocal on the quarter-rate pipe and a dozen more.  The one
+// definition of the element-mode bucket: the wrapper computes magic per
+// spec (kernels/hashed_matmul.py bucket_magic).
+__device__ __forceinline__ uint32_t bucket_mod(uint32_t h, uint32_t kp,
+                                               uint32_t magic) {
+  const uint32_t r = h - __umulhi(h, magic) * kp;
+  return min(r, r - kp);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -6,7 +6,8 @@
 // decompressed tile to x's dtype and take the product in fp32
 // (preferred_element_type=jnp.float32): bf16 operands with fp32 sums.
 //
-// tc_gemm — bf16, M > 8 rows (the wrapper's plan, TC_MIN_ROWS in
+// tc_gemm — bf16, M > 8 rows but the element forward up to 16 rows (the
+// wrapper's plan, TC_MIN_ROWS and GEMV_MAX_ROWS in
 // kernels/hashed_matmul.py, from H100 timings of both bodies at M = 8 to
 // 1024): the products run on Hopper's tensor cores, from a V that the
 // caller decompressed once per call into a bf16 workspace
@@ -34,11 +35,13 @@
 // or two blocks per SM) and the V workspace over gathering bank tiles
 // inside the loader (PERF.md).
 //
-// decompress_gemm — fp32 inputs and decode (M <= 8): the CUDA-core body.
-// A Tile policy decompresses one (TG_BK x TG_BN) tile of Vop into shared
-// memory per K step and the block reuses it for all BM rows.  At M <= 8
-// the hashing bounds it, not the product, and tensor cores would add
-// nothing; fp32 keeps full fp32 products (TF32 would change them).
+// decompress_gemm — the CUDA-core body: fp32 inputs, and at decode size
+// (M <= 8) the element transpose and both block-mode orientations (the
+// element forward up to 16 rows takes hashed_matmul.cu's gemv body).  A Tile policy decompresses one (TG_BK x TG_BN) tile of Vop
+// into shared memory per K step and the block reuses it for all BM rows.
+// At M <= 8 the hashing bounds it, not the product, and tensor cores
+// would add nothing; fp32 keeps full fp32 products (TF32 would change
+// them).
 //
 // Split-K (both bodies): the K loop may be split across blocks; each
 // split writes an fp32 partial into a workspace and splitk_reduce adds

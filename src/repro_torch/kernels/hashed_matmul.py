@@ -14,11 +14,26 @@ package's ``kernels/hashed_matmul.py``:
 - :func:`block_dw` — the block-mode bank gradient (same source;
   ``block_dw``).
 
-The three GEMMs run one of two bodies (``csrc/tile_gemm.cuh``), chosen
-by :func:`gemm_plan` from (M, K, N, mode, dtype):
+The three GEMMs run one of three bodies, chosen by :func:`gemm_plan`
+from (M, K, N, mode, dtype, orientation):
 
-- **tensor cores** for bf16 products of more than 8 rows
-  (``TC_MIN_ROWS``; training steps, prefill): 128 x 128 output tiles,
+- **gemv** (``csrc/hashed_matmul.cu`` ``hashed_gemv``) for the element
+  forward of at most ``GEMV_MAX_ROWS`` = 16 rows (bf16 or fp32;
+  serving's decode steps): each thread hashes a few rows of its
+  own columns, gathers those bank values with many loads in flight and
+  adds ``x[m][i] * V[i][j]`` straight into registers for each of the M
+  rows (M a template parameter), with no V tile in shared memory and
+  no barrier per K step.  One block of 256 columns per SM, holding as
+  much of its panel's bucket slice in shared memory as fits (all but
+  the last 14 % of qwen3-1.7b's 256 KB slices, under a third of
+  ``ffn.out``'s 768 KB), the rest read through L1 and L2.  What bounds
+  it: the hashing (two murmur mixes, the bucket reduction and the sign
+  of every virtual weight: 34 instructions a weight at M = 8 by the
+  hash's definition, ~38 in the kernel's SASS) and,
+  where the slice does not fit, the random bank reads from L2; not
+  bytes.
+- **tensor cores** for the other bf16 products of ``TC_MIN_ROWS`` = 9
+  rows or more (training steps, prefill): 128 x 128 output tiles,
   ``wgmma`` on bf16 operands with fp32 sums — what the TPU kernels do,
   which cast each decompressed tile to x's dtype and multiply with
   ``preferred_element_type=float32`` — fed by a 4-slot ``cp.async``
@@ -29,11 +44,16 @@ by :func:`gemm_plan` from (M, K, N, mode, dtype):
   signs.  Element mode is bound by the decompression's random L2
   gathers (over half its time at every M), block mode by the GEMM's
   operand traffic from L2.
-- **CUDA cores** for decode (M <= 8), where hashing every virtual weight
-  bounds the kernel and tensor cores would add nothing, and for fp32
-  inputs, which keep full fp32 products (no TF32): each block
+- **CUDA cores** (``csrc/tile_gemm.cuh`` ``decompress_gemm``) for the
+  other fp32 products, which keep full fp32 products (no TF32), and at
+  decode size (M <= 8) for the element transpose and block mode: each
+  block
   decompresses 32 x 64 tiles of V into shared memory and reuses them for
   all its rows.
+
+Every element-mode body reduces the hash to a bucket by a multiply-high
+with a per-spec constant and one conditional subtraction
+(:func:`bucket_magic`), exactly ``h % Kp``.
 
 Split-K over an fp32 workspace (reduced in split order) keeps enough
 blocks in flight when M or N is small.  Same inputs, same bits: no float
@@ -69,13 +89,29 @@ from repro_torch.core import hashed as H
 from repro_torch.kernels import _build
 
 _SMS = 132          # H100 SXM streaming multiprocessors
-# bf16 products of at least this many rows take the tensor-core body;
-# decode (M <= 8) keeps the CUDA-core body, which the hashing bounds.
-# chip_smoke phase 3 times both bodies at M = 8, 16, 64, 256, 1024: on
-# the H100 they are within 10 % of each other at M = 8 (which one wins
-# changes between runs), and the tensor cores win from M = 16 on by 1.4x
-# or more (attn.q 0.0388 vs 0.0603 ms at M = 16; PERF.md)
+# The element forward of at most GEMV_MAX_ROWS rows (its largest row
+# block, a template) takes the gemv body, which the hashing bounds; other
+# bf16 products of at least TC_MIN_ROWS rows take the tensor cores.
+# chip_smoke phase 3 times the bodies at M = 1 to 1024 on the H100
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at M = 16 the gemv body still
+# beats the tensor cores (attn.q 0.0239 vs 0.0394 ms, ffn.out 0.0941 vs
+# 0.1083 ms); the CUDA-core body loses to them from M = 16 on (attn.q
+# 0.0612 vs 0.0394 ms)
+GEMV_MAX_ROWS = 16
 TC_MIN_ROWS = 9
+GEMV_COLS = 256     # gemv: output columns a block (csrc GV_BN) ...
+GEMV_KSTEP = 32     # ... and the K granularity of a split (csrc GV_KSTEP)
+_BODY_CODE = {"cuda_core": 0, "tensor_core": 1, "gemv": 2}
+
+
+def bucket_magic(kp: int) -> int:
+    """The constant of ``rt::bucket_mod`` (``csrc/common.cuh``) for ``kp``
+    buckets a panel: floor((2**32 - 1) / kp), so that for every uint32 h,
+    with q = (h * magic) >> 32 and r = h - q * kp (mod 2**32),
+    ``h % kp == min(r, (r - kp) % 2**32)``."""
+    if not 1 <= kp < 2 ** 32:
+        raise ValueError(f"buckets per panel {kp} outside [1, 2**32)")
+    return (2 ** 32 - 1) // kp
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +240,13 @@ def block_tables(spec: H.HashedSpec, device):
 
 @dataclass(frozen=True)
 class GemmPlan:
-    """How one hashed GEMM runs: ``body`` ("tensor_core" or "cuda_core"),
-    its output tile (``bm`` x ``bn``), contraction tile ``bk``, split-K
-    factor, and the transient workspaces the wrapper allocates for the
-    call: ``v_bytes`` for V decompressed in bf16 (the tensor-core body,
-    either mode) and ``splitk_bytes`` for the fp32 partials (splits >
-    1)."""
+    """How one hashed GEMM runs: ``body`` ("tensor_core", "cuda_core" or
+    "gemv"), its output tile (``bm`` x ``bn``; gemv: ``bm`` the row
+    block the kernel is compiled for), contraction tile ``bk`` (gemv: the
+    K granularity of a split), split-K factor, and the transient
+    workspaces the wrapper allocates for the call: ``v_bytes`` for V
+    decompressed in bf16 (the tensor-core body, either mode) and
+    ``splitk_bytes`` for the fp32 partials (splits > 1)."""
     body: str
     bm: int
     bn: int
@@ -235,30 +272,65 @@ def tensor_core_ok(m: int, k: int, n: int, dtype,
             and block_cols % 8 == 0)
 
 
+def gemv_ok(m: int, mode: str, transpose: bool) -> bool:
+    """Whether the gemv body takes this product: the element forward of
+    1 to ``GEMV_MAX_ROWS`` rows, in either dtype."""
+    return mode == "element" and not transpose and 0 < m <= GEMV_MAX_ROWS
+
+
+def _gemv_plan(m: int, k: int, n: int) -> GemmPlan:
+    """The gemv body's plan: the row block is m rounded up to a power of
+    two; K splits as many as keep its blocks within one wave, counted as
+    the kernel launches them (it rounds a split up to whole K steps,
+    ``rt::split_k``)."""
+    want = max(1, _SMS // -(-n // GEMV_COLS))
+    per = -(-(-(-k // want)) // GEMV_KSTEP) * GEMV_KSTEP
+    splits = -(-k // per)
+    return GemmPlan("gemv", 1 << (m - 1).bit_length(), GEMV_COLS,
+                    GEMV_KSTEP, splits, 0,
+                    splits * m * n * 4 if splits > 1 else 0)
+
+
 def gemm_plan(m: int, k: int, n: int, mode: str = "element",
               dtype=torch.bfloat16, *, block_cols: int = 0,
+              transpose: bool = False,
               body: Optional[str] = None) -> GemmPlan:
     """The plan of a (m, k) @ (k, n) hashed GEMM in ``mode`` ("element" or
-    "block", whose bank tiles have ``block_cols`` columns).  ``body``
-    forces a body (chip_smoke times both); by default bf16 products of
-    ``TC_MIN_ROWS`` rows or more take the tensor cores.  Split-K: the
+    "block", whose bank tiles have ``block_cols`` columns); ``transpose``
+    for the ``g @ V^T`` orientation.  ``body`` forces a body (chip_smoke
+    times them); by default the element forward of at most
+    ``GEMV_MAX_ROWS`` rows takes the gemv body, other bf16 products of
+    ``TC_MIN_ROWS`` rows or more the tensor cores, the rest the CUDA
+    cores.  Split-K: the gemv body takes as many
+    splits as keep its (256-column, split) blocks within one wave over
+    the card's SMs (one block an SM), each split at least 32 rows; the
     CUDA-core body doubles the splits until its (column, row, split)
-    blocks make two waves over the card's SMs; the tensor-core body
-    doubles them while the doubled count still fits one wave (one block
-    per SM), since each split adds an fp32 partial of M x N to write and
-    reduce.  No split is shorter than one K tile (four on the tensor
-    cores)."""
+    blocks make two waves; the tensor-core body doubles them while the
+    doubled count still fits one wave (one block per SM), since each
+    split adds an fp32 partial of M x N to write and reduce.  No split is
+    shorter than one K tile (four on the tensor cores)."""
     if mode not in ("element", "block"):
         raise ValueError(f"mode {mode!r}")
     tc = tensor_core_ok(m, k, n, dtype, block_cols)
     if body is None:
-        body = "tensor_core" if tc and m >= TC_MIN_ROWS else "cuda_core"
+        if gemv_ok(m, mode, transpose):
+            body = "gemv"
+        elif tc and m >= TC_MIN_ROWS:
+            body = "tensor_core"
+        else:
+            body = "cuda_core"
     elif body == "tensor_core" and not tc:
         raise ValueError(f"the tensor-core body takes bf16 with K, N and "
                          f"bank tile columns multiples of 8; got m={m} "
                          f"k={k} n={n} {dtype} block_cols={block_cols}")
-    elif body not in _TILES:
+    elif body == "gemv" and not gemv_ok(m, mode, transpose):
+        raise ValueError(f"the gemv body takes the element forward of 1 "
+                         f"to {GEMV_MAX_ROWS} rows; got m={m} {mode} "
+                         f"transpose={transpose}")
+    elif body not in _BODY_CODE:
         raise ValueError(f"body {body!r}")
+    if body == "gemv":
+        return _gemv_plan(m, k, n)
     bm, bn, bk = _TILES[body]
     if body == "cuda_core" and m <= 8:
         bm = 8
@@ -317,6 +389,7 @@ def _gemm_out(x: torch.Tensor, n: int, plan: GemmPlan):
 
 def _element_gemm(x, w, spec, transpose: bool,
                   plan: Optional[GemmPlan] = None):
+    """Launch one element-mode GEMM; returns (y, the plan it ran)."""
     what = "element_matmul_t" if transpose else "element_matmul"
     if spec.mode != "element":
         raise ValueError(f"{what} takes element-mode specs")
@@ -326,33 +399,42 @@ def _element_gemm(x, w, spec, transpose: bool,
     if w.numel() != spec.num_buckets:
         raise ValueError(f"bank has {w.numel()} values, spec wants "
                          f"{spec.num_buckets}")
-    plan = plan or gemm_plan(x.shape[0], k, n, "element", x.dtype)
+    kp = spec.buckets_per_panel
+    plan = plan or gemm_plan(x.shape[0], k, n, "element", x.dtype,
+                             transpose=transpose)
     if plan.body == "tensor_core":
         x = _build.aligned16(x)
     y, ws, vws = _gemm_out(x, n, plan)
     fn = _build.bind("hashed_matmul", "hashed_element_matmul",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                     + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint]
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                     + [ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                        ctypes.c_uint]
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(y), _build.ptr(vws),
-            _build.ptr(ws), x.shape[0], k, n, spec.buckets_per_panel,
+            _build.ptr(ws), x.shape[0], k, n, kp, bucket_magic(kp),
             spec.panel_cols, spec.seed & 0xFFFFFFFF, int(spec.use_sign),
-            _build.DTYPE_CODE[x.dtype], plan.bm, plan.splits, int(transpose),
-            _build.stream_of(x))
+            _build.DTYPE_CODE[x.dtype], _BODY_CODE[plan.body], plan.bm,
+            plan.splits, int(transpose), _build.stream_of(x))
     _build.check(rc, what)
-    return y
+    return y, plan
 
 
 def element_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
                    out_dtype=None,
                    plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """x (M, R) @ V -> (M, C), element mode; ``plan`` (default
-    :func:`gemm_plan`) picks the body."""
+    :func:`gemm_plan`) picks the body.  Besides ``launches``,
+    ``element_matmul`` counts the launches of each body (``gemv``,
+    ``tensor_core``) and those of at most ``GEMV_MAX_ROWS`` rows
+    (``small``)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return hashed_matmul_ref(x, w, spec, out_dtype)
-    y = _element_gemm(x, w, spec, transpose=False, plan=plan)
+    y, plan = _element_gemm(x, w, spec, transpose=False, plan=plan)
     element_matmul.launches += 1
+    element_matmul.gemv += plan.body == "gemv"
+    element_matmul.tensor_core += plan.body == "tensor_core"
+    element_matmul.small += x.shape[0] <= GEMV_MAX_ROWS
     return y if out_dtype == x.dtype else y.to(out_dtype)
 
 
@@ -364,7 +446,7 @@ def element_matmul_t(g: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
     out_dtype = out_dtype or g.dtype
     if g.device.type == "cpu":
         return hashed_matmul_t_ref(g, w, spec, out_dtype)
-    y = _element_gemm(g, w, spec, transpose=True, plan=plan)
+    y, _ = _element_gemm(g, w, spec, transpose=True, plan=plan)
     element_matmul_t.launches += 1
     return y if out_dtype == g.dtype else y.to(out_dtype)
 
@@ -435,7 +517,7 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor, spec: H.HashedSpec, *,
     idx, sgn, *_ = block_tables(spec, x.device)
     brow, bcol = spec.block_shape
     plan = plan or gemm_plan(x.shape[0], k, n, "block", x.dtype,
-                             block_cols=bcol)
+                             block_cols=bcol, transpose=transpose)
     if plan.body == "tensor_core":
         x, w = _build.aligned16(x), _build.aligned16(w)
     y, ws, vws = _gemm_out(x, n, plan)
@@ -591,5 +673,7 @@ for _kernel in (element_matmul, element_matmul_t, element_dw, block_matmul,
                 block_dw):
     _kernel.launches = 0
 block_matmul.transposed = 0
+element_matmul.gemv = element_matmul.tensor_core = 0
+element_matmul.small = 0
 element_dw.tensor_core = 0
 block_dw.tensor_core = 0

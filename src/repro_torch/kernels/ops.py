@@ -44,7 +44,12 @@ def _rows(t: torch.Tensor, block):
 
 
 def _fwd_impl(x, w, spec, dtype, block):
-    x2, m = _rows(x, block)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m = x2.shape[0]
+    if not hk.gemv_ok(m, spec.mode, transpose=False):
+        # the gemv body runs at the true row count (M a template: one FMA
+        # per weight at M = 1); the others take the padded row block
+        x2, m = _pad_rows(x2, _pick_bm(m, block[0]))
     if spec.mode == "element":
         y = hk.element_matmul(x2, w, spec, out_dtype=dtype)
     else:

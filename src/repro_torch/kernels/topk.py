@@ -7,11 +7,15 @@ largest key under the monotone fp32 -> uint32 map (``-0.0`` canonicalised
 to ``+0.0`` first, as the JAX ``_sortable`` does); values strictly below
 it become ``fill``, boundary ties all survive, and ``k <= 0`` or
 ``k >= V`` leaves the row untouched.  The TPU kernel takes 32 one-bit
-passes over a row held in VMEM; a 151936-wide fp32 row (594 KB) does not
-fit in shared memory, so the CUDA kernel streams it from L2 and takes
-four eight-bit passes (a 256-bin histogram each).  What bounds it is
-bytes: five reads and one write of the row against the one read and one
-write the function needs.
+passes over a row held in VMEM.  A 151936-wide fp32 row (594 KB) does
+not fit in one block's shared memory, so the CUDA kernel holds each row
+in a thread-block cluster: every CTA loads a slice of the row once, and
+the cluster selects the threshold an 8-bit digit at a time (four
+passes), summing its CTAs' histograms over distributed shared memory; the mask is written from shared memory.  :func:`topk_plan` sizes
+the cluster, the slices and the shared memory; a row too wide for its
+cluster's shared memory streams its slice from global memory on every
+pass.  What bounds it is bytes (one read and one write of the row) and
+the latency of its passes.
 
 The plain version :func:`topk_mask_ref` (the port of the JAX package's
 ``kernels/ref.py`` ``topk_mask_ref``) sorts each row.  The CPU path takes
@@ -22,12 +26,79 @@ of ``ref.py``'s) hold the sampler's vectorized filters to a per-row walk.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 NEG = -1e30
+
+TOPK_THREADS = 512          # csrc TK_NT
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# at most this much dynamic shared memory a CTA: the H100's 227 KB less
+# what the kernel declares statically
+SMEM_LIMIT = 232448 - 1024
+
+
+def default_plan(b: int, v: int, dtype) -> int:
+    """CTAs a row by default, from chip_smoke phase 3d's sweep on the
+    H100 (PERF.md): 16 while the batch's clusters fit one wave in a few
+    GPCs (b <= 4; at b = 8 clusters of 16 took two waves), 8 to b = 8, 4
+    to b = 32, beyond that the fewest (2 or 4) that still hold the row in
+    shared memory."""
+    if b <= 4:
+        return 16
+    if b <= 8:
+        return 8
+    if b <= 32:
+        return 4
+    return next(c for c in (2, 4, 8, 16)
+                if c == 16 or topk_plan(b, v, dtype, cluster=c).resident)
+
+
+@dataclass(frozen=True)
+class TopkPlan:
+    """How one ``topk_mask`` launch runs: ``cluster`` CTAs a row, each
+    holding ``slice`` values of it, ``resident`` when the slice sits in
+    shared memory (else it streams from global memory on each pass), and
+    ``shared_bytes`` of dynamic shared memory a CTA."""
+    cluster: int
+    slice: int
+    resident: bool
+    shared_bytes: int
+
+
+# a CTA's histograms: one a warp, two buffers of its counts and the
+# cluster's counts, 256 bins each (csrc TK_NB)
+HIST_BYTES = (TOPK_THREADS // 32 + 3) * 256 * 4
+
+
+def topk_plan(b: int, v: int, dtype=torch.float32, *,
+              cluster: Optional[int] = None) -> TopkPlan:
+    """The plan of ``topk_mask`` on (b, v) logits of ``dtype``.
+    ``cluster`` forces the CTAs a row (chip_smoke sweeps them); by
+    default :func:`default_plan`'s."""
+    if dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"topk_mask: dtype {dtype} not supported")
+    cluster = cluster or default_plan(b, v, dtype)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster {cluster} not in {CLUSTER_SIZES}")
+    # whole 16-byte copies a slice, so every CTA's slice stays aligned
+    sl = max(8, -(-(-(-v // cluster)) // 8) * 8)
+    row = sl * torch.finfo(dtype).bits // 8
+    resident = HIST_BYTES + row <= SMEM_LIMIT
+    return TopkPlan(cluster, sl, resident,
+                    HIST_BYTES + (row if resident else 0))
+
+
+def streaming_from(cluster: int, dtype) -> int:
+    """The least row width whose slices no longer fit in shared memory:
+    from there on ``topk_mask`` streams the row on every pass."""
+    per = (SMEM_LIMIT - HIST_BYTES) // (
+        torch.finfo(dtype).bits // 8) // 8 * 8
+    return cluster * per + 1
 
 
 def topk_mask_ref(logits: torch.Tensor, k: torch.Tensor, fill=NEG):
@@ -50,9 +121,12 @@ def topk_mask_ref(logits: torch.Tensor, k: torch.Tensor, fill=NEG):
 topk_mask_ref.cuda_calls = 0
 
 
-def topk_mask(logits: torch.Tensor, k: torch.Tensor, fill: float = NEG):
+def topk_mask(logits: torch.Tensor, k: torch.Tensor, fill: float = NEG, *,
+              plan: Optional[TopkPlan] = None):
     """Mask each row of ``logits`` (B, V) to its top-``k[row]`` values
-    (k (B,) int; ``k <= 0`` or ``k >= V`` disables the row)."""
+    (k (B,) int; ``k <= 0`` or ``k >= V`` disables the row).  ``plan``
+    (default :func:`topk_plan`) sizes the cluster; ``topk_mask.resident``
+    counts the launches that held their rows in shared memory."""
     if logits.device.type == "cpu":
         return topk_mask_ref(logits, k, fill)
     _build.require_cuda(logits, "topk_mask")
@@ -61,18 +135,24 @@ def topk_mask(logits: torch.Tensor, k: torch.Tensor, fill: float = NEG):
     x = logits.contiguous()
     kk = k.to(device=x.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(x)
+    b, v = x.shape
+    plan = plan or topk_plan(b, v, x.dtype)
     fn = _build.bind("topk", "topk_mask",
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    rc = fn(_build.ptr(x), _build.ptr(out), _build.ptr(kk), x.shape[0],
-            x.shape[1], float(fill), _build.DTYPE_CODE[x.dtype],
-            _build.stream_of(x))
+                     + [ctypes.c_float] + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    rc = fn(_build.ptr(x), _build.ptr(out), _build.ptr(kk), b, v,
+            float(fill), _build.DTYPE_CODE[x.dtype], plan.cluster,
+            plan.slice, int(plan.resident),
+            plan.shared_bytes, _build.stream_of(x))
     _build.check(rc, "topk_mask")
     topk_mask.launches += 1
+    topk_mask.resident += int(plan.resident)
     return out
 
 
 topk_mask.launches = 0
+topk_mask.resident = 0
 
 
 def topp_mask_ref(z: torch.Tensor, p, fill=NEG):

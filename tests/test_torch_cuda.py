@@ -12,6 +12,8 @@ order); bf16 <= 1e-2 x (one rounding of the output); ``dw`` (fp32 out)
 1e-5, and bitwise equal to itself across two launches; the top-k mask
 bitwise; a small model's training step as stated in its test.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -217,17 +219,20 @@ def _check_tc(got, again, want, plan):
 @pytest.mark.parametrize("panel_cols", [0, 256])
 def test_cuda_element_tensor_core_gemm_vs_plain(cuda_device, m, transpose,
                                                 panel_cols):
-    """bf16 element-mode GEMM of more than 8 rows, both orientations:
-    K and N (392, 648) are not multiples of the 64 x 128 tiles, and the
-    256-column panels end inside a tile."""
+    """bf16 element-mode GEMM of 16 rows or more on the tensor cores, both
+    orientations: K and N (392, 648) are not multiples of the 64 x 128
+    tiles, and the 256-column panels end inside a tile."""
     spec = TH.HashedSpec(virtual_shape=(392, 648), compression=0.125,
                          seed=11, panel_cols=panel_cols)
     x, w = _tc_case(cuda_device, spec, m, transpose, m + panel_cols)
     k, n = (spec.cols, spec.rows) if transpose else (spec.rows, spec.cols)
-    plan = THK.gemm_plan(m, k, n, "element", torch.bfloat16)
+    # forced: the forward of 16 rows takes the gemv body by default
+    plan = THK.gemm_plan(m, k, n, "element", torch.bfloat16,
+                         transpose=transpose, body="tensor_core")
     fn = THK.element_matmul_t if transpose else THK.element_matmul
     ref = THK.hashed_matmul_t_ref if transpose else THK.hashed_matmul_ref
-    _check_tc(fn(x, w, spec), fn(x, w, spec), ref(x, w, spec), plan)
+    _check_tc(fn(x, w, spec, plan=plan), fn(x, w, spec, plan=plan),
+              ref(x, w, spec), plan)
 
 
 @pytest.mark.cuda
@@ -274,6 +279,67 @@ def test_cuda_gemm_bodies_agree_bitwise_repeatable(cuda_device, mode):
         err, scale = _max_err(got, want)
         assert err <= 1e-2 * scale
         assert torch.equal(got, again)
+
+
+def _gemv_case(cuda_device, m, panel_cols, use_sign, dtype):
+    """K x N = 1000 x 650: neither a multiple of the gemv body's 32-row K
+    steps nor of its 256-column blocks.  Panels of 256 columns keep every
+    block in one panel (the bank slice staged in shared memory); panels
+    of 128 and 200 make blocks straddle panels (every value read from
+    global memory)."""
+    spec = TH.HashedSpec(virtual_shape=(1000, 650), compression=0.125,
+                         seed=21, panel_cols=panel_cols, use_sign=use_sign)
+    g = torch.Generator(device=cuda_device).manual_seed(m + panel_cols)
+    w = torch.randn(spec.num_buckets, generator=g, device=cuda_device) \
+        .to(dtype)
+    x = torch.randn(m, 1000, generator=g, device=cuda_device).to(dtype)
+    return spec, x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 16])
+@pytest.mark.parametrize("panel_cols", [0, 256, 128, 200])
+@pytest.mark.parametrize("use_sign", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gemv_vs_plain_bitwise_repeatable(cuda_device, m, panel_cols,
+                                               use_sign, dtype):
+    """The gemv body (the element forward at decode size; M = 16 forced)
+    with its split-K and with one split: fp32 within 1e-5 x the largest
+    plain value (sum order), bf16 within one rounding of the output; the
+    same bits on a second launch; counted as a gemv launch."""
+    spec, x, w = _gemv_case(cuda_device, m, panel_cols, use_sign, dtype)
+    plan = THK.gemm_plan(m, 1000, 650, "element", dtype,
+                         body="gemv" if m > 8 else None)
+    assert plan.body == "gemv" and plan.splits > 1
+    one = dataclasses.replace(plan, splits=1, splitk_bytes=0)
+    want = THK.hashed_matmul_ref(x, w, spec)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    before = THK.element_matmul.launches, THK.element_matmul.gemv
+    for p in (plan, one):
+        got = THK.element_matmul(x, w, spec, plan=p)
+        assert got.shape == (m, 650) and got.dtype == dtype
+        assert torch.equal(got, THK.element_matmul(x, w, spec, plan=p))
+        err, scale = _max_err(got, want)
+        assert err <= tol * scale
+    assert (THK.element_matmul.launches, THK.element_matmul.gemv) \
+        == (before[0] + 4, before[1] + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gemv_one_hot_rows_are_materialized_rows(cuda_device, m,
+                                                      dtype):
+    """Row m of x one-hot at virtual row r_m: the gemv body returns row
+    r_m of V, bitwise (every other product adds an exact zero)."""
+    spec, _, w = _gemv_case(cuda_device, m, 256, True, dtype)
+    rows = torch.tensor([0, 999, 517, 31, 32, 500, 777, 1][:m],
+                        device=cuda_device)
+    x = torch.zeros(m, 1000, dtype=dtype, device=cuda_device)
+    x[torch.arange(m, device=cuda_device), rows] = 1
+    assert THK.gemm_plan(m, 1000, 650, "element", dtype).body == "gemv"
+    got = THK.element_matmul(x, w, spec)
+    assert torch.equal(got, TH.materialize(w, spec, dtype=dtype)[rows])
 
 
 @pytest.mark.cuda
@@ -521,6 +587,57 @@ def test_cuda_topk_mask_vs_plain_bitwise(cuda_device):
     bf = x.to(torch.bfloat16)
     got = TTK.topk_mask(bf.to(cuda_device), k.to(cuda_device))
     assert torch.equal(got.cpu(), TTK.topk_mask_ref(bf, k))
+
+
+def _topk_rows(b, v, dtype, device):
+    """b rows of width v: random logits, every third row with 100 ties
+    at its threshold, every third with +-0.0 ties; k cycling through the
+    disabled and edge values."""
+    rng = np.random.default_rng(b + v)
+    x = rng.standard_normal((b, v)).astype(np.float32)
+    x[1::3, :100] = 3.5
+    x[2::3, ::2] = 0.0
+    x[2::3, 1::2] = -0.0
+    x[2::3, :10] = 1.0
+    cycle = [50, 50, 50, 1, v - 1, 0, v, 20, 7, v // 2]
+    k = np.array([cycle[r % len(cycle)] for r in range(b)], np.int32)
+    return (torch.from_numpy(x).to(device=device, dtype=dtype),
+            torch.from_numpy(k).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 8, 64])
+@pytest.mark.parametrize("v", [1000, 151936, "streaming"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_topk_mask_cluster_vs_plain_bitwise(cuda_device, b, v, dtype):
+    """The default plan: rows resident in their cluster's shared memory,
+    or, past the width where the slices fit, streamed on every pass;
+    bitwise equal to the plain version."""
+    stream = v == "streaming"
+    if stream:
+        v = TTK.streaming_from(TTK.default_plan(b, 1 << 22, dtype), dtype)
+    x, k = _topk_rows(b, v, dtype, cuda_device)
+    assert TTK.topk_plan(b, v, dtype).resident != stream
+    before = TTK.topk_mask.resident
+    got = TTK.topk_mask(x, k)
+    assert TTK.topk_mask.resident == before + (not stream)
+    assert torch.equal(got, TTK.topk_mask_ref(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_topk_mask_forced_plans_vs_plain_bitwise(cuda_device, cluster,
+                                                      dtype):
+    """Every cluster size at B = 8, V = 151936 (the slices of one CTA a
+    row, and of two in fp32, overflow shared memory and stream; more
+    hold the row)."""
+    x, k = _topk_rows(8, 151936, dtype, cuda_device)
+    plan = TTK.topk_plan(8, 151936, dtype, cluster=cluster)
+    assert plan.resident == (cluster >= (4 if dtype == torch.float32
+                                         else 2))
+    got = TTK.topk_mask(x, k, plan=plan)
+    assert torch.equal(got, TTK.topk_mask_ref(x, k))
 
 
 @pytest.mark.cuda

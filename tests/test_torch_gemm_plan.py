@@ -6,7 +6,9 @@ split count and transient workspaces (``kernels/hashed_matmul.py``
 The plan is pure Python, so these tests run without a card: bf16
 products of more than 8 rows take the tensor-core body (128 x 128 x 64
 tiles, V decompressed once per call into a bf16 workspace of R x C x 2
-bytes); decode (M <= 8) and fp32 keep the CUDA-core body with the split
+bytes), except the element forward of at most 16 rows, which takes the
+gemv body in either dtype (``tests/test_torch_decode_kernels.py``); fp32
+and the decode-size transpose keep the CUDA-core body with the split
 counts it had before the tensor-core body existed.  Exact equality
 throughout: these are integers.  The kernels themselves are held against
 their plain versions on the card by ``tests/test_torch_cuda.py``.
@@ -40,23 +42,30 @@ def _old_split_count(m, k, n):
     return splits
 
 
-@pytest.mark.parametrize("m,want", [(1, "cuda_core"), (8, "cuda_core"),
-                                    (9, "tensor_core"), (16, "tensor_core"),
+@pytest.mark.parametrize("m,want", [(1, "gemv"), (8, "gemv"),
+                                    (16, "gemv"), (17, "tensor_core"),
                                     (1024, "tensor_core")])
 def test_plan_body_follows_the_row_threshold(m, want):
-    assert THK.TC_MIN_ROWS == 9
+    assert (THK.TC_MIN_ROWS, THK.GEMV_MAX_ROWS) == (9, 16)
     plan = THK.gemm_plan(m, 2048, 2048, "element", torch.bfloat16)
     assert plan.body == want
     assert (plan.bm, plan.bn, plan.bk) == \
-        ((128, 128, 64) if want == "tensor_core" else (8, 64, 32)
-         if m <= 8 else (64, 64, 32))
+        ((128, 128, 64) if want == "tensor_core" else (m, 256, 32))
 
 
 @pytest.mark.parametrize("mode", ["element", "block"])
 @pytest.mark.parametrize("m", [1, 8, 64, 1024])
 def test_plan_fp32_keeps_the_cuda_core_body(mode, m):
+    """fp32 never takes the tensor cores (no TF32): the CUDA-core body,
+    except the element forward at decode size, whose gemv body keeps
+    fp32 products too."""
     plan = THK.gemm_plan(m, 2048, 6144, mode, torch.float32, block_cols=128)
-    assert plan.body == "cuda_core" and plan.v_bytes == 0
+    assert plan.v_bytes == 0
+    if mode == "element" and m <= 8:
+        assert plan.body == "gemv"
+        plan = THK.gemm_plan(m, 2048, 6144, mode, torch.float32,
+                             transpose=True)
+    assert plan.body == "cuda_core"
     assert plan.splits == _old_split_count(m, 2048, 6144)
 
 
@@ -64,7 +73,11 @@ def test_plan_fp32_keeps_the_cuda_core_body(mode, m):
                                  (2048, 1024), (1024, 2048), (392, 648)])
 @pytest.mark.parametrize("m", [1, 3, 8])
 def test_plan_decode_split_counts_unchanged(k, n, m):
-    plan = THK.gemm_plan(m, k, n, "element", torch.bfloat16)
+    """The decode-size transpose (and a forced CUDA-core forward) keep
+    the CUDA-core body's split counts."""
+    plan = THK.gemm_plan(m, k, n, "element", torch.bfloat16, transpose=True)
+    assert plan == THK.gemm_plan(m, k, n, "element", torch.bfloat16,
+                                 body="cuda_core")
     assert plan.body == "cuda_core" and plan.bm == 8
     assert plan.splits == _old_split_count(m, k, n)
     assert plan.splitk_bytes == (plan.splits * m * n * 4
@@ -86,13 +99,14 @@ def test_plan_v_workspace_at_ffn_out(mode, transpose):
 
 # chip_smoke's shapes (qwen3-1.7b-hashed8: attn.q 2048 x 2048, ffn.out
 # 6144 x 2048 both ways, attn.k 2048 x 1024 both ways) -> splits at
-# M = 8, 16, 64, 256, 1024
+# M = 8 and 16 (the gemv body: 256-column blocks x splits within 132),
+# 64, 256, 1024
 SPLITS = {
-    (2048, 2048): (16, 8, 8, 4, 1),
-    (6144, 2048): (16, 8, 8, 4, 1),
-    (2048, 6144): (4, 2, 2, 1, 1),
-    (2048, 1024): (32, 8, 8, 8, 2),
-    (1024, 2048): (16, 4, 4, 4, 1),
+    (2048, 2048): (16, 16, 8, 4, 1),
+    (6144, 2048): (16, 16, 8, 4, 1),
+    (2048, 6144): (5, 5, 2, 1, 1),
+    (2048, 1024): (32, 32, 8, 8, 2),
+    (1024, 2048): (16, 16, 4, 4, 1),
 }
 
 
