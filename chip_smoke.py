@@ -46,10 +46,27 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
    loss must fall; every training kernel launched, every ``dw`` launch
    on its tensor-core body, no plain version run on the card), step
    time, peak memory and a profile of one step; then serve 4 requests
-   in block mode.
+   in block mode; then, cut to 2 layers at full width, checkpoint and
+   resume through ``launch.train.run`` (4 steps with a checkpoint every
+   2, then 6 steps resumed at step 4: the restored state bitwise equal
+   to the saved one, the resumed losses within ``TOL_LOSS`` of an
+   uninterrupted run; bytes written, save and restore seconds) and train
+   with each gradient compressor (the first step's loss equal to the
+   uncompressed one, the next finite; wire bytes, step times);
+7. the paper's MLPs (784-1000-10 and 784-1000-1000-1000-10, fp32,
+   minibatch 50, one global bucket space, compression 1/8 and 1/64):
+   (a) one forward and backward of each hashed net, kernel path against
+   plain path within ``TOL_FP32``; (b) every layer launched the forward
+   and ``dw`` kernels, every layer but the first ``dx``, all on the
+   CUDA-core body, no plain version on the card; (c) the three kernels
+   timed at the 1000 x 1000 layer, M = 50, 1/64, beside their plain
+   version, bound and library call; (d) ``run_method`` for hashed, nn,
+   rer and lrd at 1/64 on the ``basic`` analogue (2500 train, 2000 test,
+   4 epochs): test errors and median step times, each method's last
+   epoch's loss (as the fit records it) below its first.
 
-Prints a JSON line of per-kernel numbers, then as its last line
-``{"ok": true, "device": {...}}``.
+Prints each phase's seconds, a JSON line of per-kernel numbers, then as
+its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -68,7 +85,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL_BF16 = 1e-2                # max |kernel - plain| / max |plain|, bf16
 TOL_LOGITS = 5e-2              # whole-model logits, 28 bf16 layers
 TOL_DW = 1e-4                  # fp32 dw from bf16 inputs: sum order only
-TOL_FP32 = 1e-4                # fp32 gemv (fp32 products): sum order only
+TOL_FP32 = 1e-4                # fp32 products (gemv, the MLPs): sum order only
 TOL_LOSS = 1e-2                # training loss, kernel vs plain path (rel)
 TOL_GRAD = 0.15                # bank grads: max |d| / max |plain| ...
 MIN_COS = 0.99                 # ... and cosine similarity, 28 bf16 layers
@@ -78,6 +95,8 @@ SWEEP_M = (1, 8, 16, 64, 256, 1024)  # GEMM bodies timed, forced
 LANES_PER_CLOCK = 132 * 128    # H100 SXM: SMs x instructions a clock an SM
 SERVE_KERNELS = ("hashed_matmul", "paged_decode", "paged_prefill",
                  "topk_mask")
+MLP_KERNELS = ("hashed_matmul", "hashed_matmul_t", "hashed_dw")
+MLP_M = 50                     # the paper's minibatch
 
 
 def fail(msg: str) -> None:
@@ -128,6 +147,22 @@ class Timer:
         return float(np.median(times))
 
 
+class Phases:
+    """Wall seconds of each phase (phases 1 and 2 until the first
+    ``start``), printed at the end."""
+
+    def __init__(self):
+        self.marks = [("1-2 build", time.perf_counter())]
+
+    def start(self, name: str) -> None:
+        self.marks.append((name, time.perf_counter()))
+
+    def report(self) -> str:
+        ends = [t for _, t in self.marks[1:]] + [time.perf_counter()]
+        return ", ".join(f"{name} {end - t0:.1f}s"
+                         for (name, t0), end in zip(self.marks, ends))
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
     err = (got.float() - ref.float()).abs().max().item()
     scale = max(ref.float().abs().max().item(), 1e-30)
@@ -165,6 +200,7 @@ def main() -> int:
     from repro_torch.core.device import resolve_device
 
     t_start = time.perf_counter()
+    phases = Phases()
     dev = resolve_device("cuda")        # also keeps fp32 products off TF32
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -206,6 +242,7 @@ def main() -> int:
     # definition (gemv_ops_per_weight) over the SMs' issue rate at the
     # card's largest SM clock; the SASS count of the kernel's own product
     # loop is printed beside it.
+    phases.start("3 kernels")
     print("[3] kernels against their plain versions on the card", flush=True)
     ipw = gemv_instructions(_build)
     mhz = sm_clocks()
@@ -592,6 +629,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. serve full-width qwen3-1.7b-hashed8 -------------------------------
+    phases.start("4 serve")
     print(f"[4] serving {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
           f"{cfg.dtype} on seeded weights", flush=True)
     t0 = time.perf_counter()
@@ -706,6 +744,7 @@ def main() -> int:
         fail("decode-step logits: kernel path disagrees with plain path")
 
     # -- 5. where a decode step and a prefill dispatch spend their time -------
+    phases.start("5 profile")
     steps = {
         "decode step B=4": lambda: model.decode_paged(params, last, pages,
                                                       tbl, cnt),
@@ -734,6 +773,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
     # -- 6. training at full width, element mode then block mode -------------
+    phases.start("6 train")
     from repro_torch.data import lm_stream
     tb = next(lm_stream.batches(seed=17, batch=4, seq_len=256,
                                 vocab=cfg.vocab_size))
@@ -782,6 +822,18 @@ def main() -> int:
     check_counts(path_counts["serve block"],
                  ("block_matmul", "paged_decode", "paged_prefill"),
                  "block-mode serving")
+    del model_b, eng, state
+    torch.cuda.empty_cache()
+
+    # checkpoint, resume and gradient compression through launch.train
+    phases.start("6 ckpt+compress")
+    ckpt_phase(C)
+    torch.cuda.empty_cache()
+
+    # -- 7. the paper's MLPs through the hashed kernels ------------------------
+    phases.start("7 mlp")
+    path_counts["mlp"] = mlp_phase(dev, results)
+    torch.cuda.empty_cache()
 
     # -- result line -----------------------------------------------------------
     # kernel -> (the case timed in phase 3, the path whose launches count,
@@ -820,6 +872,8 @@ def main() -> int:
                              f"block_matmul q M={M_TRAIN}",
                              f"block_matmul_t q M={M_TRAIN}"],
             "block_dw": [f"block_dw q M={M_TRAIN}", f"block_dw k M={M_TRAIN}"]}
+    for name in MLP_KERNELS:
+        more[name].append(f"{name} mlp 1000x1000 M={MLP_M} fp32")
     out = []
     for name, (_, _, src) in K.KERNELS.items():
         case, path, replaces = rows[name]
@@ -833,7 +887,11 @@ def main() -> int:
                "shape": case, "path": path}
         if name in more:
             row["cases"] = [dict(shape=c, **results[c]) for c in more[name]]
+        if name in MLP_KERNELS:
+            # one forward and backward of 784-1000-10 at 1/64 (phase 7)
+            row["mlp_step_launches"] = path_counts["mlp"][name]["launches"]
         out.append(row)
+    print(f"phase seconds: {phases.report()}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"kernels": out}))
@@ -1080,36 +1138,41 @@ def block_config(C, path: str):
         mode="block", block_shape=(128, 128), path=path))
 
 
-def check_counts(counts, kernels, what: str) -> None:
+def check_counts(counts, kernels, what: str,
+                 body: str = "tensor_core") -> None:
     """Every kernel of a path launched; every element GEMM of at most 16
     rows (decode: at most 8) on the gemv body and every other launch of a
-    kernel that has a tensor-core body on that body (the paths run bf16 at
-    full width);
-    every top-k with its rows resident in its cluster's shared memory; no
-    plain version run on the card."""
+    kernel that has a tensor-core body on ``body``: "tensor_core" on the
+    bf16 paths at full width, "cuda_core" on the fp32 MLP path (the
+    tensor-core bodies take bf16 only); every top-k with its rows
+    resident in its cluster's shared memory; no plain version run on the
+    card."""
     for name in kernels:
         c = counts[name]
         if c["launches"] <= 0:
             fail(f"kernel {name} was not launched on the {what} path")
+        want_tc = (lambda n: n) if body == "tensor_core" else (lambda n: 0)
         if name == "hashed_matmul":
             small = c["small"]
             if c["gemv"] != small:
                 fail(f"{small - c['gemv']} of the {small} element GEMMs of "
                      f"at most 16 rows on the {what} path did not run the "
                      f"gemv body")
-            if c["tensor_core"] != c["launches"] - small:
-                fail(f"{c['launches'] - small - c['tensor_core']} element "
-                     f"GEMMs of more than 16 rows on the {what} path did "
-                     f"not run the tensor-core body")
+            if c["tensor_core"] != want_tc(c["launches"] - small):
+                fail(f"element GEMMs of more than 16 rows on the {what} "
+                     f"path: {c['tensor_core']} of "
+                     f"{c['launches'] - small} on the tensor cores, "
+                     f"expected all on the {body} body")
         elif name == "topk_mask":
             if c["resident"] != c["launches"]:
                 fail(f"{c['launches'] - c['resident']} top-k launches on "
                      f"the {what} path did not hold their rows in their "
                      f"cluster's shared memory")
-        elif c.get("tensor_core", c["launches"]) != c["launches"]:
-            fail(f"{name} ran its CUDA-core body "
-                 f"{c['launches'] - c['tensor_core']} times on the {what} "
-                 f"path")
+        elif "tensor_core" in c and \
+                c["tensor_core"] != want_tc(c["launches"]):
+            fail(f"{name}: {c['tensor_core']} of {c['launches']} launches "
+                 f"on the tensor cores on the {what} path, expected all on "
+                 f"the {body} body")
     for name, c in counts.items():
         if c["plain_cuda_calls"] != 0:
             fail(f"plain version of {name} ran on the card on the {what} "
@@ -1221,6 +1284,240 @@ def train_phase(label, cfg, plain_cfg, batch, n_steps, kernels):
         for kname, ms_, n in top:
             print(f"      {ms_:9.3f} ms {n:5d}x  {kname}")
     return counts, state
+
+
+def ckpt_phase(C) -> None:
+    """Phase 6, continued: checkpoint, resume and gradient compression
+    through ``launch.train.run`` on qwen3-1.7b-hashed8 at full width, cut
+    to 2 layers (the checkpoint is mostly the embedding's AdamW state),
+    B=4 x S=256, in a temporary directory removed at the end."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = C.get("qwen3-1.7b-hashed8").with_(num_layers=2)
+    kw = dict(batch=4, seq=256, device="cuda", log_every=0)
+    print(f"[6] checkpoint and resume: {cfg.name} cut to "
+          f"{cfg.num_layers} layers, B=4 S=256, launch.train.run",
+          flush=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = launch.run(cfg, steps=4, ckpt_dir=d, ckpt_every=2,
+                           ckpt_keep=1, **kw)
+        if ckpt.available_steps(d) != [4]:
+            fail(f"checkpoints after 4 steps, keep=1: "
+                 f"{ckpt.available_steps(d)}")
+        step_dir = os.path.join(d, "step_00000004")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        restored = ckpt.restore(d, first["state"])
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        leaves = list(zip(tree_leaves(restored),
+                          tree_leaves(first["state"])))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in leaves)
+        print(f"    4 steps, saves at 2 and 4: {nbytes} bytes a "
+              f"checkpoint ({len(leaves)} leaves), saves "
+              f"{', '.join(f'{t:.2f}' for t in first['save_seconds'])} s, "
+              f"restore {t_restore:.2f} s; restored state bitwise equal "
+              f"to the saved one: {same}", flush=True)
+        if not same:
+            fail("checkpoint: the restored state differs from the saved one")
+        del restored, leaves, first
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resumed = launch.run(cfg, steps=6, ckpt_dir=d, ckpt_every=2,
+                                 ckpt_keep=1, **kw)
+        print("    " + out.getvalue().strip().replace("\n", "\n    "),
+              flush=True)
+        if "restored checkpoint @ step 4" not in out.getvalue():
+            fail("resume: no 'restored checkpoint @ step 4'")
+        del resumed["state"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    whole = launch.run(cfg, steps=6, **kw)
+    del whole["state"]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(resumed["losses"], whole["losses"][4:]))
+    print(f"    resumed steps 4-5 losses "
+          f"{' '.join(f'{v:.6f}' for v in resumed['losses'])} vs "
+          f"uninterrupted {' '.join(f'{v:.6f}' for v in whole['losses'][4:])}"
+          f": rel {rel:.2e} (tol {TOL_LOSS}); restore in the resumed run "
+          f"{resumed['restore_seconds']:.2f} s", flush=True)
+    if len(resumed["losses"]) != 2 or not rel <= TOL_LOSS:
+        fail("resume: the resumed losses differ from an uninterrupted run")
+    torch.cuda.empty_cache()
+
+    plain_ms = 1e3 * float(np.median(whole["step_times"][1:]))
+    for kind in ("hashed_space", "int8"):
+        comp = launch.run(cfg, steps=3, grad_compressor=kind, **kw)
+        wire = gc.wire_bytes(comp["state"]["params"], kind)
+        dense = gc.wire_bytes(comp["state"]["params"], "none")
+        del comp["state"]
+        gc._SKETCH.clear()
+        torch.cuda.empty_cache()
+        l0, w0 = comp["losses"][0], whole["losses"][0]
+        print(f"    {kind}: losses "
+              f"{' '.join(f'{v:.6f}' for v in comp['losses'])} (first "
+              f"uncompressed {w0:.6f}, bitwise equal {l0 == w0}); wire "
+              f"bytes {wire} vs {dense} uncompressed; step "
+              f"{1e3 * float(np.median(comp['step_times'][1:])):.1f} ms vs "
+              f"{plain_ms:.1f} ms uncompressed (host clock, median of "
+              f"steps 2-3 / 2-6; the first includes the sketch's tables)",
+              flush=True)
+        if abs(l0 - w0) > 1e-6 * abs(w0):
+            fail(f"{kind}: the first step's loss differs from the "
+                 f"uncompressed one (compression acts after the loss)")
+        if not all(np.isfinite(comp["losses"])):
+            fail(f"{kind}: a compressed step's loss is not finite")
+
+
+def mlp_phase(dev, results) -> dict:
+    """Phase 7: the paper's MLPs through the hashed kernels, fp32.
+    Returns the launch counts of (b)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import hashed as H
+    from repro_torch.data import mnist_synthetic as D
+    from repro_torch.kernels import hashed_matmul as THK
+    from repro_torch.kernels import ops
+    from repro_torch.paper import mlp
+    from repro_torch.paper import train as T
+    import torch.nn.functional as F
+
+    print("[7] the paper's MLPs: fp32, minibatch 50, panel_cols 0",
+          flush=True)
+    x_np, y_np = D.load("basic", "train", n=MLP_M, seed=0)
+    x = torch.from_numpy(x_np).to(dev)
+    y = torch.from_numpy(y_np).to(dev)
+    # (a) + (b): kernel path against plain path, counted
+    counts = None
+    for dims in ((784, 1000, 10), (784, 1000, 1000, 1000, 10)):
+        for c in (1 / 8, 1 / 64):
+            spec = mlp.MLPSpec(dims, method="hashed", compression=c,
+                               dropout=0.0, input_dropout=0.0)
+            params = mlp.init(spec, torch.Generator().manual_seed(0), dev)
+            out = {}
+            for path in ("pallas", "materialize"):
+                leaves = [{k: v.detach().requires_grad_(True)
+                           for k, v in p.items()} for p in params]
+                K.reset_counts()
+                logits = mlp.apply(spec, leaves, x, path=path)
+                loss = mlp.xent(logits, y)
+                loss.backward()
+                torch.cuda.synchronize()
+                out[path] = (logits.detach(), leaves, K.counts())
+            (lk, gk, ck), (lp, gp, _) = out["pallas"], out["materialize"]
+            worst = rel_err(lk, lp)[1]
+            for a, b in zip(gk, gp):
+                for key in a:
+                    worst = max(worst, rel_err(a[key].grad, b[key].grad)[1])
+            nl = spec.n_layers
+            per = {n: ck[n]["launches"] for n in MLP_KERNELS}
+            print(f"    {'-'.join(map(str, dims))} at 1/{round(1 / c)}: "
+                  f"buckets {[spec.hashed_spec(l).num_buckets for l in range(nl)]}"
+                  f"; logits and every bank and bias gradient, kernel vs "
+                  f"plain: worst rel {worst:.2e} (tol {TOL_FP32}); launches "
+                  f"{json.dumps(per)}", flush=True)
+            if not worst <= TOL_FP32:
+                fail(f"MLP {dims} at {c}: kernel path disagrees with the "
+                     f"plain path")
+            if per != {"hashed_matmul": nl, "hashed_matmul_t": nl - 1,
+                       "hashed_dw": nl}:
+                fail(f"MLP {dims} at {c}: launches {per}, expected "
+                     f"{nl}/{nl - 1}/{nl} (forward/dx/dw)")
+            check_counts(ck, MLP_KERNELS, f"MLP {dims}", body="cuda_core")
+            counts = ck if len(dims) == 3 and c == 1 / 64 else counts
+            del out, params
+
+    # (c) the three kernels at the 1000 x 1000 layer, M = 50, 1/64
+    timer = Timer(dev, host_ahead=True)
+    spec = mlp.MLPSpec((784, 1000, 1000, 1000, 10), method="hashed",
+                       compression=1 / 64).hashed_spec(1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    r, cc, m = spec.rows, spec.cols, MLP_M
+    w = torch.randn(spec.num_buckets, generator=gen, device=dev) / r ** 0.5
+    xa = torch.randn(m, r, generator=gen, device=dev)
+    gy = torch.randn(m, cc, generator=gen, device=dev)
+    pad = (0, 0, 0, (-m) % ops._pick_bm(m))   # the rows the path runs
+    xp, gp_ = F.pad(xa, pad), F.pad(gy, pad)
+    v = H.materialize(w, spec, dtype=torch.float32)
+    ii = torch.arange(r, device=dev)[:, None]
+    jj = torch.arange(cc, device=dev)[None, :]
+    eidx, esgn = H.element_indices(spec, ii, jj)
+    eidx, esgn = eidx.reshape(-1), esgn.reshape(-1).float()
+    flops = 2.0 * m * r * cc
+    cases = {
+        "hashed_matmul": (
+            lambda: ops.hashed_matmul(xa, w, spec),
+            lambda: THK.hashed_matmul_ref(xa, w, spec),
+            lambda: torch.matmul(xa, v),
+            4 * (m * r + spec.num_buckets + m * cc)),
+        "hashed_matmul_t": (
+            lambda: THK.element_matmul_t(gp_, w, spec)[:m],
+            lambda: THK.hashed_matmul_t_ref(gy, w, spec),
+            lambda: torch.matmul(gy, v.t()),
+            4 * (m * cc + spec.num_buckets + m * r)),
+        "hashed_dw": (
+            lambda: THK.element_dw(xp, gp_, spec),
+            lambda: THK.hashed_dw_ref(xa, gy, spec),
+            lambda: torch.zeros(spec.num_buckets, device=dev).index_add_(
+                0, eidx, torch.matmul(xa.t(), gy).reshape(-1) * esgn),
+            4 * (m * (r + cc) + spec.num_buckets)),
+    }
+    for name, (fn, plain_fn, lib_fn, nbytes) in cases.items():
+        got, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        ms, plain, lib = timer(fn), timer(plain_fn), timer(lib_fn)
+        b, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        key = f"{name} mlp 1000x1000 M={m} fp32"
+        print(f"    {key}: Kp={spec.buckets_per_panel} max_abs_err={err:.3e} "
+              f"rel={rel:.2e} (tol {TOL_FP32}) "
+              f"{'ok' if rel <= TOL_FP32 else 'FAIL'}  ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={b:.5f} ({by})", flush=True)
+        if not rel <= TOL_FP32:
+            fail(f"{key} disagrees with its plain version")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=b, bound_by=by)
+    del timer, v, eidx, esgn
+
+    # (d) one short fit of each method at 1/64
+    xs, ys = D.load("basic", "train", n=2500, seed=0)
+    xt, yt = D.load("basic", "test", n=2000, seed=1)
+    cfg = T.TrainConfig(epochs=4)
+    for method in ("hashed", "nn", "rer", "lrd"):
+        t0 = time.perf_counter()
+        res = T.run_method(method, (784, 1000, 10), 1 / 64, xs, ys, xt, yt,
+                           cfg, device=dev)
+        hist = res["history"]
+        step_ms = float(np.median(hist["step_ms"][1:]))
+        print(f"    fit {method:6s} 1/64 dims {res['dims']}: test error "
+              f"{res['test_err'] * 100:.2f}%, free params "
+              f"{res['free_params']}, epoch losses "
+              f"{' '.join(f'{v:.4f}' for v in hist['loss'])} (means "
+              f"{' '.join(f'{v:.4f}' for v in hist['mean_loss'])}), step "
+              f"{step_ms:.3f} ms (CUDA events, median of "
+              f"{len(hist['step_ms']) - 1}), {time.perf_counter() - t0:.1f}s"
+              f" in all", flush=True)
+        # the limit reads the loss the fit records for each epoch (its
+        # last minibatch's, as the JAX package's fit records it): the
+        # recipe's lr of 0.05 with momentum 0.9 makes the hashed net's
+        # loss spike in epoch 2 before the cosine decay brings it down,
+        # on the plain path too, so the epoch means need not fall
+        if not hist["loss"][-1] < hist["loss"][0]:
+            fail(f"MLP fit {method}: the loss did not fall")
+    return counts
 
 
 def _profile(fn):

@@ -1,2 +1,3 @@
-"""Data of the PyTorch port: the synthetic LM token stream."""
-from repro_torch.data import lm_stream  # noqa: F401
+"""Data of the PyTorch port: the synthetic LM token stream and the
+synthetic analogues of the paper's eight image datasets."""
+from repro_torch.data import lm_stream, mnist_synthetic  # noqa: F401

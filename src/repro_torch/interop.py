@@ -59,3 +59,48 @@ def params_to_numpy(tree):
         return t.view(torch.int16).numpy().view(np.uint16) \
             .view(ml_dtypes.bfloat16)
     return t.numpy().copy()
+
+
+def mlp_params_from_numpy(params, spec, device=None, lrd_fixed=None):
+    """The JAX package's MLP params (a list of per-layer ``{"w" | "u",
+    "b"}`` dicts of numpy arrays) -> ``(params, fixed)`` for
+    ``repro_torch.paper``: the same list of tensors on ``device`` (default
+    the card), checked against ``paper.mlp.param_shapes``, and the
+    per-layer LRD fixed factors: ``lrd_fixed`` (a list of numpy arrays or
+    None per layer, e.g. the reference's ``mlp._lrd_fixed``) when given,
+    else the port's own (``paper.mlp.fixed_factors``)."""
+    from repro_torch.paper import mlp
+    dev = resolve_device(device)
+    expect = mlp.param_shapes(spec)
+    if len(params) != len(expect):
+        raise ValueError(f"{len(params)} layers of params, spec has "
+                         f"{len(expect)}")
+    out = []
+    for l, (p, want) in enumerate(zip(params, expect)):
+        if set(p) != set(want):
+            raise ValueError(f"layer {l}: keys {sorted(p)}, expected "
+                             f"{sorted(want)}")
+        layer = {k: _to_tensor(p[k], dev) for k in sorted(p)}
+        for k, t in layer.items():
+            if tuple(t.shape) != want[k]:
+                raise ValueError(f"layer {l}.{k}: shape {tuple(t.shape)}, "
+                                 f"expected {want[k]}")
+        out.append(layer)
+    if lrd_fixed is None:
+        return out, mlp.fixed_factors(spec, dev)
+    fixed = []
+    for l, a in enumerate(lrd_fixed):
+        want = mlp.lrd_fixed_shape(spec, l) if spec.method == "lrd" else None
+        got = None if a is None else tuple(np.shape(a))
+        if got != want:
+            raise ValueError(f"layer {l}: LRD factor of shape {got}, "
+                             f"expected {want}")
+        fixed.append(None if a is None else _to_tensor(a, dev))
+    return out, fixed
+
+
+def mlp_params_to_numpy(params):
+    """The reverse of :func:`mlp_params_from_numpy` for the params: a list
+    of per-layer dicts of numpy arrays on the host."""
+    return [{k: v.detach().cpu().numpy().copy() for k, v in p.items()}
+            for p in params]

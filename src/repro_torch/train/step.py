@@ -1,12 +1,13 @@
 """Train step of the PyTorch port: microbatched gradient accumulation,
-clipping and the optimizer update (the JAX package's ``train/step.py``).
+clipping, optional gradient compression with error feedback and the
+optimizer update (the JAX package's ``train/step.py``).
 
-The train state is a plain dict {"params", "opt", "step"} of tensors, as
-in the JAX package; ``train_step`` is functional and returns a new one.
-Gradients come from ``torch.autograd.grad`` on detached leaves of the
-params, so the state itself never carries autograd history.  Not ported:
-``state_pspecs`` (there is no mesh) and gradient compression (ROADMAP
-Queue A item 9).
+The train state is a plain dict {"params", "opt", "step"} of tensors (and
+"residual" with compression), as in the JAX package; ``train_step`` is
+functional and returns a new one.  Gradients come from
+``torch.autograd.grad`` on detached leaves of the params, so the state
+itself never carries autograd history.  Not ported: ``state_pspecs``
+(there is no mesh).
 """
 from __future__ import annotations
 
@@ -15,32 +16,44 @@ from typing import Optional
 import torch
 
 from repro_torch.models.transformer import Model
+from repro_torch.train import grad_compress
 from repro_torch.train.optimizer import (Optimizer, clip_by_global_norm,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
 
 
-def init_state(model: Model, optimizer: Optimizer, seed: int = 0):
+def init_state(model: Model, optimizer: Optimizer, seed: int = 0,
+               with_residual: bool = False):
     params = model.init(seed)
-    return {"params": params, "opt": optimizer.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    if with_residual:
+        # error-feedback residuals for compressed gradient exchange
+        state["residual"] = grad_compress.init_residual(params)
+    return state
 
 
 def make_train_step(model: Model, optimizer: Optimizer,
                     num_microbatches: int = 1,
                     clip_norm: Optional[float] = 1.0,
                     accum_dtype=torch.bfloat16,
-                    grad_compressor: Optional[str] = None):
+                    grad_compressor: Optional[str] = None,
+                    compress_ratio: float = 0.125):
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch leaves are tensors with leading dim = global batch; with
     num_microbatches > 1 they are split into (MB, B/MB, ...) and the
     grads are summed in ``accum_dtype`` over a loop (bounds activation
     memory), then averaged.
+
+    grad_compressor ("hashed_space" | "int8" | None): compress the
+    clipped gradients before the optimizer with error feedback, where the
+    JAX step does (``train/grad_compress.py``).  Requires
+    ``init_state(..., with_residual=True)``.
     """
-    if grad_compressor:
-        raise NotImplementedError(
-            "gradient compression: not ported yet (ROADMAP Queue A item 9)")
+    compress = (grad_compress.make_compressor(grad_compressor,
+                                              compress_ratio)
+                if grad_compressor else None)
 
     def grad_fn(params, mb):
         leaves = [p.detach().requires_grad_(True)
@@ -83,10 +96,16 @@ def make_train_step(model: Model, optimizer: Optimizer,
         else:
             gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
 
+        new_residual = None
+        if compress is not None:
+            grads, new_residual = compress(grads, state["residual"])
+
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
                                                state["step"])
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
+        if new_residual is not None:
+            new_state["residual"] = new_residual
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm

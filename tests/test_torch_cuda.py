@@ -53,16 +53,26 @@ def _topk_case():
     return torch.from_numpy(x), torch.from_numpy(k)
 
 
+# the paper's MLP layers (784-1000-...-10, compression 1/64, one global
+# bucket space): fp32 at the minibatch of 50 rows
+MLP_SHAPES = [(784, 1000), (1000, 1000), (1000, 10)]
+FWD_CASES = ([(m, dtype, (1024, 768), 0.125, panel_cols)
+              for panel_cols in (256, 0) for m in (1, 8, 37, 256)
+              for dtype in (torch.float32, torch.bfloat16)]
+             + [(50, torch.float32, shape, 1 / 64, 0) for shape in MLP_SHAPES]
+             + [(2000, torch.float32, (784, 1000), 1 / 64, 0)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 37, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_hashed_matmul_vs_plain(cuda_device, m, dtype):
-    spec = TH.HashedSpec(virtual_shape=(1024, 768), compression=0.125,
-                         seed=9, panel_cols=256)
+@pytest.mark.parametrize("m,dtype,shape,compression,panel_cols", FWD_CASES)
+def test_cuda_hashed_matmul_vs_plain(cuda_device, m, dtype, shape,
+                                     compression, panel_cols):
+    spec = TH.HashedSpec(virtual_shape=shape, compression=compression,
+                         seed=9, panel_cols=panel_cols)
     g = torch.Generator(device=cuda_device).manual_seed(m)
     w = torch.randn(spec.num_buckets, generator=g, device=cuda_device) \
         .to(dtype)
-    x = torch.randn(m, 1024, generator=g, device=cuda_device).to(dtype)
+    x = torch.randn(m, shape[0], generator=g, device=cuda_device).to(dtype)
     before = THK.element_matmul.launches
     got = TOPS.hashed_matmul(x, w, spec)
     assert THK.element_matmul.launches == before + 1
@@ -79,36 +89,43 @@ def _max_err(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 37, 256])
-@pytest.mark.parametrize("panel_cols", [0, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_element_dx_vs_plain(cuda_device, m, panel_cols, dtype):
-    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125,
+@pytest.mark.parametrize(
+    "m,panel_cols,dtype,shape,compression",
+    [(m, panel_cols, dtype, (768, 1024), 0.125) for m in (1, 37, 256)
+     for panel_cols in (0, 256)
+     for dtype in (torch.float32, torch.bfloat16)]
+    + [(50, 0, torch.float32, shape, 1 / 64) for shape in MLP_SHAPES])
+def test_cuda_element_dx_vs_plain(cuda_device, m, panel_cols, dtype, shape,
+                                  compression):
+    spec = TH.HashedSpec(virtual_shape=shape, compression=compression,
                          seed=4, panel_cols=panel_cols)
     g = torch.Generator(device=cuda_device).manual_seed(m)
     w = torch.randn(spec.num_buckets, generator=g, device=cuda_device) \
         .to(dtype)
-    gy = torch.randn(m, 1024, generator=g, device=cuda_device).to(dtype)
+    gy = torch.randn(m, shape[1], generator=g, device=cuda_device).to(dtype)
     before = THK.element_matmul_t.launches
     got = THK.element_matmul_t(gy, w, spec)
     assert THK.element_matmul_t.launches == before + 1
-    assert got.shape == (m, 768) and got.dtype == dtype
+    assert got.shape == (m, shape[0]) and got.dtype == dtype
     err, scale = _max_err(got, THK.hashed_matmul_t_ref(gy, w, spec))
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2) * scale
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("panel_cols", [0, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "panel_cols,dtype,shape,compression,m",
+    [(panel_cols, dtype, (768, 1024), 0.125, 200) for panel_cols in (0, 256)
+     for dtype in (torch.float32, torch.bfloat16)]
+    + [(0, torch.float32, shape, 1 / 64, 50) for shape in MLP_SHAPES])
 def test_cuda_element_dw_vs_plain_and_bitwise_repeatable(
-        cuda_device, panel_cols, dtype):
+        cuda_device, panel_cols, dtype, shape, compression, m):
     """dw is fp32 in both; the kernel sums each bucket in a fixed order,
     so two launches give the same bits."""
-    spec = TH.HashedSpec(virtual_shape=(768, 1024), compression=0.125,
+    spec = TH.HashedSpec(virtual_shape=shape, compression=compression,
                          seed=8, panel_cols=panel_cols)
     g = torch.Generator(device=cuda_device).manual_seed(panel_cols)
-    x = torch.randn(200, 768, generator=g, device=cuda_device).to(dtype)
-    gy = torch.randn(200, 1024, generator=g, device=cuda_device).to(dtype)
+    x = torch.randn(m, shape[0], generator=g, device=cuda_device).to(dtype)
+    gy = torch.randn(m, shape[1], generator=g, device=cuda_device).to(dtype)
     got = THK.element_dw(x, gy, spec)
     again = THK.element_dw(x, gy, spec)
     assert got.dtype == torch.float32 and got.shape == (spec.num_buckets,)

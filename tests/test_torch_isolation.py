@@ -2,9 +2,11 @@
 
 - In a subprocess with ``sys.modules["jax"] = None`` (so any JAX import
   fails), import ``repro_torch``, serve two requests on the CPU, train
-  two steps through ``launch.train``, run the hashed GEMM's forward and
-  backward wrappers in both modes, and check that nothing of ``repro``
-  was imported.
+  two steps through ``launch.train`` (with a checkpoint and gradient
+  compression), run the hashed GEMM's forward and backward wrappers in
+  both modes, import the paper's MLPs, their data and the trainer's
+  checkpoint, fault-tolerance and compression modules and fit a small
+  hashed MLP, and check that nothing of ``repro`` was imported.
 - An AST scan of ``src/repro_torch/**``, ``chip_smoke.py`` and
   ``gemm_timing.py``: no JAX import and no import of the JAX package.
 - Without a CUDA device, the entry points raise unless asked for the CPU.
@@ -42,9 +44,20 @@ from repro_torch.launch import train
 from repro_torch.train import optimizer, step  # noqa: F401
 from repro_torch.core.hashed import HashedSpec
 from repro_torch.kernels import ops
-assert train.main(["--arch", "qwen3-1.7b", "--reduced", "--hashed",
-                   "--device", "cpu", "--steps", "2", "--batch", "2",
-                   "--seq", "8"]) == 0
+import tempfile
+with tempfile.TemporaryDirectory() as ck:
+    assert train.main(["--arch", "qwen3-1.7b", "--reduced", "--hashed",
+                       "--device", "cpu", "--steps", "2", "--batch", "2",
+                       "--seq", "8", "--ckpt-dir", ck,
+                       "--grad-compress", "int8"]) == 0
+from repro_torch.data import mnist_synthetic
+from repro_torch.paper import mlp as pmlp, train as ptrain
+from repro_torch.train import checkpoint, fault_tolerance, grad_compress  # noqa: F401
+x, y = mnist_synthetic.load("rect", "train", n=100)
+spec = pmlp.MLPSpec((784, 16, 2), method="hashed", compression=1 / 8)
+params, hist = ptrain.fit(spec, x, y, ptrain.TrainConfig(epochs=1),
+                          device="cpu")
+assert 0.0 <= ptrain.evaluate(spec, params, x, y) <= 1.0
 for spec in (HashedSpec((32, 64), 0.25, panel_cols=32),
              HashedSpec((32, 64), 0.25, mode="block", block_shape=(16, 32))):
     w = torch.zeros(spec.real_param_shape(), requires_grad=True)
@@ -117,6 +130,17 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
+    from repro_torch.paper import mlp, train as ptrain
+    spec = mlp.MLPSpec((784, 8, 10), method="hashed", compression=0.125)
+    x = np.zeros((50, 784), np.float32)
+    y = np.zeros(50, np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptrain.fit(spec, x, y, ptrain.TrainConfig(epochs=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp.init(spec, torch.Generator())
+    params, _ = ptrain.fit(spec, x, y, ptrain.TrainConfig(epochs=1),
+                           device="cpu")
+    assert params[0]["w"].device.type == "cpu"
     assert Engine(model, model.init(0), device="cpu").device.type == "cpu"
 
 

@@ -257,12 +257,18 @@ def test_launch_train_cpu_reduced_end_to_end(capsys):
                        "--seq", "16"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("step     0 loss ")
-    assert out[-2] == '{"final_step": 2}'
+    assert out[-2] == '{"final_step": 2, "straggler_count": 0}'
     assert out[-1].startswith("loss: first=")
 
 
 def test_grad_compression_is_not_ported_yet():
+    """Gradient compression is ported now (``test_torch_train_infra.py``
+    holds it against the reference); the test keeps its name and checks
+    what is left of the old refusal: an unknown compressor is refused,
+    and the known ones build a step."""
     _, _, tm, _ = _pair("dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(tm, topt.adamw(topt.constant_lr(1e-3)),
-                              grad_compressor="int8")
+    opt = topt.adamw(topt.constant_lr(1e-3))
+    with pytest.raises(ValueError):
+        tstep.make_train_step(tm, opt, grad_compressor="fp4")
+    for kind in ("int8", "hashed_space"):
+        assert callable(tstep.make_train_step(tm, opt, grad_compressor=kind))
