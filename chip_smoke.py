@@ -38,6 +38,20 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
    the kernel path against the bf16 plain path (the limit), both also
    measured
    against an fp32 plain path (logit error and argmax agreement);
+4b. the same 8 requests with ``batched_prefill=False``, every chunk
+   through its row's dense scratch cache (``Model.prefill``): 16 tokens
+   each, no page leak, no ragged-prefill launch, every element GEMM of at
+   most 16 rows on the gemv body and the rest on the tensor cores, paged
+   decode and top-k launched, no plain version on the card; wall and
+   device busy time against phase 4's path (the count of requests whose
+   tokens equal phase 4's printed, no limit); ``model.prefill`` against
+   ``model.prefill_paged`` on the same 4 feeds (last logits within
+   ``TOL_LOGITS``, argmax equal where the top-2 margin exceeds twice the
+   error); the sampler's Threefry Gumbel field at B=8, V=151936 on the
+   card against the CPU (bits bitwise, field within ``TOL_GUMBEL``) and
+   its time; ``launch.serve.main --ckpt-dir --stream --stop`` on a params
+   checkpoint of ``model.init(1)``, its greedy tokens equal to an
+   in-process engine's;
 5. profile a decode step and a prefill dispatch;
 6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
    lm_stream batches of B=4 x S=256), element mode and then block mode
@@ -87,6 +101,7 @@ TOL_LOGITS = 5e-2              # whole-model logits, 28 bf16 layers
 TOL_DW = 1e-4                  # fp32 dw from bf16 inputs: sum order only
 TOL_FP32 = 1e-4                # fp32 products (gemv, the MLPs): sum order only
 TOL_LOSS = 1e-2                # training loss, kernel vs plain path (rel)
+TOL_GUMBEL = 1e-6              # Gumbel field, card vs CPU: torch.log only
 TOL_GRAD = 0.15                # bank grads: max |d| / max |plain| ...
 MIN_COS = 0.99                 # ... and cosine similarity, 28 bf16 layers
                                # forward and back, bf16 scatter in the plain
@@ -652,19 +667,7 @@ def main() -> int:
                 [shared, rng.integers(2, V, size=n - 96).astype(np.int32)]))
         else:
             prompts.append(rng.integers(2, V, size=n).astype(np.int32))
-    eng = Engine(model, params, device="cuda", max_concurrency=4,
-                 max_len=256, eos_id=-1, page_size=16, prefix_cache=True,
-                 prefill_chunk=64, debug_leak_check=True,
-                 scheduler=SchedulerConfig(max_queue=16,
-                                           max_prefills_per_tick=4))
-    reqs = []
-    for uid, p in enumerate(prompts):
-        sp = SamplingParams(temperature=0.8, top_k=50, seed=uid,
-                            max_tokens=16) if uid in (2, 6) \
-            else SamplingParams(max_tokens=16)
-        reqs.append(Request(uid=uid, prompt=p, sampling=sp))
-        if not eng.submit(reqs[-1]):
-            fail(f"request {uid} refused")
+    eng, reqs = serve_engine(model, params, prompts, batched=True)
     K.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -743,6 +746,13 @@ def main() -> int:
     if not ok:
         fail("decode-step logits: kernel path disagrees with plain path")
 
+    # -- 4b. the same requests through the sequential scratch-cache prefill --
+    phases.start("4b sequential serve")
+    path_counts = {"serve": counts_}
+    path_counts["serve sequential"] = seq_serve_phase(
+        model, params, prompts, reqs, wall, feed, cfg, results)
+    torch.cuda.empty_cache()
+
     # -- 5. where a decode step and a prefill dispatch spend their time -------
     phases.start("5 profile")
     steps = {
@@ -780,7 +790,6 @@ def main() -> int:
     batch = {k: torch.from_numpy(v).to(dev) for k, v in tb.items()}
     del model, plain_model, params, pages, pages_b, eng
     torch.cuda.empty_cache()
-    path_counts = {"serve": counts_}
     cfg_e = C.get("qwen3-1.7b-hashed8")
     path_counts["train element"], _ = train_phase(
         "element", cfg_e, cfg_e.with_(hash_path="materialize"), batch, 8,
@@ -899,6 +908,240 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_engine(model, params, prompts, batched: bool):
+    """Phase 4's engine (max concurrency 4, page size 16, prefix cache,
+    chunk 64, at most 4 chunk steps a tick) holding its 8 requests, rows
+    2 and 6 sampled; ``batched`` picks the ragged batched prefill or the
+    sequential scratch-cache one."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.scheduler import SchedulerConfig
+    eng = Engine(model, params, device=model.device, max_concurrency=4,
+                 max_len=256, eos_id=-1, page_size=16, prefix_cache=True,
+                 prefill_chunk=64, debug_leak_check=True,
+                 batched_prefill=batched,
+                 scheduler=SchedulerConfig(max_queue=16,
+                                           max_prefills_per_tick=4))
+    reqs = []
+    for uid, p in enumerate(prompts):
+        sp = SamplingParams(temperature=0.8, top_k=50, seed=uid,
+                            max_tokens=16) if uid in (2, 6) \
+            else SamplingParams(max_tokens=16)
+        reqs.append(Request(uid=uid, prompt=p, sampling=sp))
+        if not eng.submit(reqs[-1]):
+            fail(f"request {uid} refused")
+    return eng, reqs
+
+
+def seq_serve_phase(model, params, prompts, reqs4, wall4, feeds, cfg,
+                    results) -> dict:
+    """Phase 4b: phase 4's requests with ``batched_prefill=False`` (every
+    chunk through the dense scratch cache, ``Model.prefill``): 16 tokens
+    each, no page leak, no ragged-prefill launch, every element GEMM of
+    at most 16 rows on the gemv body and the rest on the tensor cores,
+    paged decode and top-k launched, no plain version on the card; wall
+    and device busy time of both paths; ``model.prefill`` against
+    ``model.prefill_paged`` on phase 4's four decode feeds; the sampler's
+    Gumbel field on the card against the CPU at B=8, V=151936; and
+    ``launch.serve.main`` serving a params checkpoint with ``--ckpt-dir
+    --stream --stop``, its greedy tokens equal to an in-process engine's.
+    Returns the sequential run's launch counts."""
+    from repro_torch import kernels as K
+    dev = model.device
+    V = cfg.vocab_size
+    eng, reqs = serve_engine(model, params, prompts, batched=False)
+    K.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_ = K.counts()
+    stats = eng.stats()
+    eng.shutdown()
+    ntok = sum(len(r.tokens) for r in reqs)
+    same = sum(r.tokens == q.tokens for r, q in zip(reqs, reqs4))
+    print(f"[4b] sequential prefill: {stats['done']}/{len(reqs)} done, "
+          f"{ntok} tokens in {wall:.2f}s = {ntok / wall:.1f} tok/s "
+          f"(phase 4 batched {wall4:.2f}s), {stats['ticks']} ticks, "
+          f"prefix hit tokens {stats['hit_tokens']}, sampler "
+          f"{stats['sampler_time_s']:.3f}s; tokens equal to "
+          f"phase 4's in {same}/{len(reqs)} requests (measured, no limit)",
+          flush=True)
+    print(f"    launch counts: {json.dumps(counts_)}", flush=True)
+    if stats["done"] != len(reqs) or any(len(r.tokens) != 16 for r in reqs):
+        fail("sequential serving: not every request finished with 16 "
+             "tokens")
+    if eng.last_leak_error:
+        fail(f"sequential serving: page leak: {eng.last_leak_error}")
+    if counts_["paged_prefill"]["launches"] != 0:
+        fail("sequential serving launched the ragged prefill kernel")
+    check_counts(counts_, ("hashed_matmul", "paged_decode", "topk_mask"),
+                 "sequential serving")
+    del eng
+    for batched in (True, False):
+        eng, _ = serve_engine(model, params, prompts, batched=batched)
+        busy, top = _profile(eng.run, cpu=False)
+        eng.shutdown()
+        name = "batched" if batched else "sequential"
+        if busy is None:
+            print(f"    {name} serve run: device busy not measured (no "
+                  f"CUDA events in the trace)", flush=True)
+            continue
+        print(f"    {name} serve run: device busy {busy:.3f} ms "
+              f"(profiler, one run); top kernels: "
+              + "; ".join(f"{k} {ms:.3f} ms {n}x" for k, ms, n in top[:4]),
+              flush=True)
+        del eng
+    torch.cuda.empty_cache()
+
+    # the dense scratch against the paged prefill on the same 4 feeds
+    n = len(feeds)
+    pages = model.init_paged_cache(n * 16 + 1, 16)
+    tbl = torch.arange(1, n * 16 + 1, dtype=torch.int32,
+                       device=dev).reshape(n, 16)
+    smax = max(len(f) for f in feeds)
+    toks = np.zeros((n, smax), np.int64)
+    for i, f in enumerate(feeds):
+        toks[i, :len(f)] = f
+    cnt = torch.tensor([len(f) for f in feeds], dtype=torch.int32,
+                       device=dev)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    x_last = model.prefill_paged(params, torch.from_numpy(toks).to(dev),
+                                 pages, tbl, zeros, cnt, zeros)
+    paged = torch.cat([model.logits_head(params, x_last[i:i + 1])[:, -1, :V]
+                       for i in range(n)])
+    dense = []
+    for f in feeds:
+        bucket = -(-len(f) // 64) * 64
+        t = np.zeros((1, bucket), np.int64)
+        t[0, :len(f)] = f
+        lg, _ = model.prefill(params, {
+            "tokens": torch.from_numpy(t).to(dev),
+            "cache": model.init_cache(1, 256), "length": len(f)})
+        dense.append(lg[:, -1, :V])
+    dense = torch.cat(dense)
+    torch.cuda.synchronize()
+    err, rel = rel_err(dense, paged)
+    top2 = torch.topk(paged, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = dense.argmax(-1) == paged.argmax(-1)
+    ok = rel <= TOL_LOGITS and bool(agree[decided].all())
+    print(f"    last logits, dense scratch prefill vs paged prefill on "
+          f"{n} feeds of {', '.join(str(len(f)) for f in feeds)} tokens: "
+          f"max_abs_err={err:.3e} rel={rel:.2e} (tol {TOL_LOGITS}); argmax "
+          f"agrees on {int(agree[decided].sum())}/{int(decided.sum())} "
+          f"rows whose top-2 margin exceeds 2x the error "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("dense scratch prefill disagrees with the paged prefill")
+    del pages, x_last, paged, dense
+
+    gumbel_check(dev, V, results)
+    serve_ckpt_check(model, ["--arch", "qwen3-1.7b", "--hashed"])
+    return counts_
+
+
+def gumbel_check(dev, V, results) -> None:
+    """The sampler's Gumbel field at B=8, V=151936 on the card against
+    the CPU: the Threefry bits bitwise, the field within ``TOL_GUMBEL``
+    (max |Δ| over max |CPU|); its CUDA-event time."""
+    from repro_torch.core import threefry
+    from repro_torch.serving.sampling import _BASE_KEY_SEED, gumbel_noise
+    seeds = [0, 1, 2 ** 31 - 1, 7, 123456789, 42, 2 ** 32 - 1, 5]
+    pos = [0, 15, 3, 2 ** 31 - 1, 100, 9, 1, 64]
+
+    def keys(device):
+        key = threefry.fold_in(threefry.fold_in(
+            threefry.prng_key(_BASE_KEY_SEED), seeds), pos)
+        return tuple(torch.from_numpy(k).to(device) for k in key)
+    bits_ok = torch.equal(threefry.random_bits(keys(dev), V).cpu(),
+                          threefry.random_bits(keys("cpu"), V))
+    g_dev = gumbel_noise(seeds, pos, V, dev)
+    g_cpu = gumbel_noise(seeds, pos, V, "cpu")
+    err, rel = rel_err(g_dev.cpu(), g_cpu)
+    ms = Timer(dev)(lambda: gumbel_noise(seeds, pos, V, dev), iters=20)
+    busy, _ = _profile(lambda: gumbel_noise(seeds, pos, V, dev), cpu=False)
+    ok = bits_ok and rel <= TOL_GUMBEL
+    print(f"    Gumbel field B=8 V={V}: Threefry bits card vs CPU bitwise "
+          f"{bits_ok}; field max_abs_err={err:.3e} rel={rel:.2e} (tol "
+          f"{TOL_GUMBEL}); {ms:.4f} ms on the card (CUDA events, median of "
+          f"20, host cost included), device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'} "
+          f"(profiler, one call) {'ok' if ok else 'FAIL'}", flush=True)
+    results["gumbel_noise B=8"] = {"ms": ms, "max_abs_err": err}
+    if not ok:
+        fail("the Gumbel field on the card differs from the CPU's")
+
+
+def serve_ckpt_check(model, arch_args) -> None:
+    """``launch.serve.main --ckpt-dir --stream --stop`` on a params
+    checkpoint of ``model.init(1)``, ``arch_args`` naming the model's
+    config: its greedy tokens (cut at the stop sequence, which is request
+    0's first two tokens) equal an in-process engine's on those params;
+    the load time is printed."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.sampling import match_stop
+    from repro_torch.train import checkpoint as ckpt
+
+    params1 = model.init(1)
+    eng = Engine(model, params1, device=model.device, max_concurrency=4,
+                 max_len=256, eos_id=-1)
+    for uid, p in enumerate(serve.prompts(4, model.cfg.vocab_size)):
+        eng.submit(Request(uid=uid, prompt=p,
+                           sampling=SamplingParams(max_tokens=8)))
+    eng.run()
+    want = {r.uid: r.tokens for r in eng._done}
+    del eng
+    stop = tuple(want[0][:2])
+    for uid, toks in want.items():
+        for j in range(1, len(toks) + 1):
+            if match_stop(toks[:j], (stop,)):
+                want[uid] = toks[:j]
+                break
+    d = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save({"params": params1}, d, 1)
+        t_save = time.perf_counter() - t0
+        del params1
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(arch_args + [
+                "--device", model.device.type, "--requests", "4",
+                "--max-new", "8", "--ckpt-dir", d, "--stream",
+                "--stop", ",".join(map(str, stop))])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    text = out.getvalue()
+    got, reasons = {}, {}
+    for line in text.splitlines():
+        m = re.match(r"^req (\d+): (\[[^\]]*\])  \(finish=(\w+)", line)
+        if m:
+            got[int(m.group(1))] = json.loads(m.group(2))
+            reasons[int(m.group(1))] = m.group(3)
+    load = re.search(r"loaded params from \S+ \(([\d.]+)s\)", text)
+    deltas = sum(1 for line in text.splitlines() if " += [" in line)
+    ok = rc == 0 and got == want and reasons.get(0) == "stop" \
+        and deltas > 0 and load is not None
+    print(f"    launch.serve --ckpt-dir --stream --stop: save "
+          f"{t_save:.2f} s, load {load.group(1) if load else '?'} s; "
+          f"{deltas} streamed deltas, finish reasons {reasons}; greedy "
+          f"tokens equal to the in-process engine's: {got == want} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(text[-3000:], flush=True)
+        fail("launch.serve --ckpt-dir did not serve the checkpoint's tokens")
 
 
 def plan_str(plan) -> str:
@@ -1520,16 +1763,18 @@ def mlp_phase(dev, results) -> dict:
     return counts
 
 
-def _profile(fn):
+def _profile(fn, cpu: bool = True):
     """Device busy time of one call of ``fn`` and its top kernels, from
     ``torch.profiler``; (None, []) when the trace holds no device time.
     Only the device-side rows (kernels, copies) are summed: an operator's
-    CPU-side row repeats the device time of the kernels it launched."""
+    CPU-side row repeats the device time of the kernels it launched.
+    ``cpu=False`` records the device alone (a whole serve run's host
+    operators would only slow the trace's aggregation)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []

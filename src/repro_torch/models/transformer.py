@@ -4,18 +4,18 @@ The port of the JAX package's ``models/transformer.py`` as far as
 training a decoder and serving it through the paged engine need it: the
 hashed-slot inventory and policy resolution (``hash_slots``,
 ``slot_assignments``, ``bank_spec_map``), ``softmax_xent``, and from
-``_build_decoder`` the seeded ``init``, ``train_loss``,
-``init_paged_cache``, ``decode_paged``, ``prefill_paged`` and
-``logits_head``.  Params are the JAX package's nested dict with the same
+``_build_decoder`` the seeded ``init``, ``train_loss``, the dense-cache
+serving functions (``init_cache``, ``fwd_with_cache``, ``prefill``,
+``decode_step``), ``init_paged_cache``, ``decode_paged``,
+``prefill_paged`` and ``logits_head``.  Params are the JAX package's nested dict with the same
 leaf paths and the layer-stacked ``(L, ...)`` layout, so params carried
 across with :func:`repro_torch.interop.params_from_numpy` compute the
 same function.  PyTorch runs eagerly: the layer loop is a Python loop,
 and the page pools are written in place (the JAX package threads them
 through a ``lax.scan`` and the engine donates them).
 
-Not ported yet: the dense-cache paths (``prefill``, ``decode_step``;
-ROADMAP Queue A item 4), ``decode_paged_block`` (spec decode, item 8),
-MoE and the non-decoder kinds (item 11).
+Not ported yet: ``decode_paged_block`` (spec decode, ROADMAP Queue A
+item 8), MoE, image tokens and the non-decoder kinds (item 11).
 """
 from __future__ import annotations
 
@@ -171,7 +171,9 @@ class Model:
     paged engine.
 
     ``init(seed)`` -> params; ``train_loss(params, batch)`` -> (loss,
-    metrics); ``init_paged_cache(num_pages, page_size)``
+    metrics); ``init_cache`` / ``prefill`` / ``decode_step`` run the dense
+    KV cache (the engine's scratch-cache prefill), written in place;
+    ``init_paged_cache(num_pages, page_size)``
     -> {"k", "v"} page pools (nl, P, ps, n_kv, hd);
     ``decode_paged`` / ``prefill_paged`` run one engine dispatch and write
     the pools in place; ``logits_head`` is the final norm + tied LM head.
@@ -223,6 +225,19 @@ class Model:
             return tuple(node.shape)
         return shapes(tree)
 
+    def empty_params(self):
+        """Uninitialised params (``torch.empty``) with the params tree's
+        shapes and dtypes on the model's device: a checkpoint's restore
+        target."""
+        tree = self._init_tree(None, torch.device("meta"))
+
+        def empty(node):
+            if isinstance(node, dict):
+                return {k: empty(v) for k, v in node.items()}
+            return torch.empty(node.shape, dtype=node.dtype,
+                               device=self.device)
+        return empty(tree)
+
     def _init_tree(self, g, dev):
         d = self.cfg.d_model
         params = {"embed": L.embedding_init(self.emb_plan, g, dev)}
@@ -238,6 +253,16 @@ class Model:
         params["final_norm"] = L.rmsnorm_init(d, device=dev)
         return params
 
+    def init_cache(self, batch: int, max_len: int):
+        """A zero dense KV cache: {"k", "v"} (nl, B, max_len, n_kv, hd)
+        and the write ``index`` (an int; ``decode_step`` also takes a
+        (B,) tensor of per-row positions)."""
+        shape = (self.cfg.num_layers, batch, max_len, self.cfg.num_kv_heads,
+                 self.cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "index": 0}
+
     def init_paged_cache(self, num_pages: int, page_size: int):
         shape = (self.cfg.num_layers, num_pages, page_size,
                  self.cfg.num_kv_heads, self.cfg.head_dim)
@@ -252,10 +277,21 @@ class Model:
         h = L.rmsnorm_apply(lp["ln2"], x)
         return x + FFN.apply(self.ffn_plan, lp["ffn"], h)
 
-    def _layer(self, lp, x, positions):
+    def _layer(self, lp, x, positions, cache_kv=None, cache_index=None):
         h = L.rmsnorm_apply(lp["ln1"], x)
-        x = x + ATT.apply(self.attn_plan, lp["attn"], h, positions=positions)
+        x = x + ATT.apply(self.attn_plan, lp["attn"], h, positions=positions,
+                          cache=cache_kv, cache_index=cache_index)
         return self._ffn(lp, x)
+
+    def embed_input(self, params, batch):
+        """Token embeddings of ``batch["tokens"]``; a model with image
+        tokens would prepend ``batch["image_embeds"]`` (no ported config
+        has them, ROADMAP Queue A item 11), and other extras (encoder
+        frames) are not read by a decoder."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.num_image_tokens > 0 and "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+        return x
 
     def train_loss(self, params, batch):
         """Next-token loss of ``batch`` {"tokens", "targets"} (B, S) with
@@ -280,6 +316,53 @@ class Model:
         """Final norm + tied LM head (fp32 logits over the padded vocab)."""
         x = L.rmsnorm_apply(params["final_norm"], x)
         return L.embedding_logits(self.emb_plan, params["embed"], x)
+
+    @torch.no_grad()
+    def fwd_with_cache(self, params, x, cache, start, length=None):
+        """The layers over embeddings x (B, S, d) at positions ``start +
+        s`` (``start`` an int, or a (B,) tensor of per-row positions),
+        writing each layer's K/V into ``cache`` in place.  With
+        ``length`` (bucketed prefill: the tokens are right-padded to a
+        fixed bucket) only the last real position, ``length - 1``, goes
+        through the LM head (at M = 1), and the index advances by
+        ``length``: the pads' K/V beyond it stay masked until decode
+        overwrites them.  Returns (logits (B, S or 1, padded_vocab) fp32,
+        the cache with its new index)."""
+        s = x.shape[1]
+        if isinstance(start, torch.Tensor) and start.dim() == 1:
+            positions = start.to(device=x.device, dtype=torch.int64)[:, None] \
+                + torch.arange(s, device=x.device)[None, :]
+        else:
+            positions = int(start) + torch.arange(s, device=x.device)
+        for i in range(self.cfg.num_layers):
+            lp = _tree_index(params["layers"], i)
+            x = self._layer(lp, x, positions,
+                            cache_kv=(cache["k"][i], cache["v"][i]),
+                            cache_index=start)
+        if length is not None:
+            x = x[:, int(length) - 1:int(length)]
+        step = s if length is None else int(length)
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "index": start + step}
+        return self.logits_head(params, x), new_cache
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Prefill ``batch["tokens"]`` (B, S) into ``batch["cache"]`` at its
+        index (``batch["length"]``: the real tokens of a padded bucket).
+        Returns (last-position logits (B, 1, padded_vocab), cache)."""
+        x = self.embed_input(params, batch)
+        cache = batch["cache"]
+        logits, cache = self.fwd_with_cache(params, x, cache, cache["index"],
+                                            length=batch.get("length"))
+        return logits[:, -1:, :], cache
+
+    @torch.no_grad()
+    def decode_step(self, params, tokens, cache):
+        """One token a row, (B, 1), through the dense cache at its index.
+        Returns (logits (B, 1, padded_vocab), cache)."""
+        x = self._embed(params, tokens)
+        return self.fwd_with_cache(params, x, cache, cache["index"])
 
     @torch.no_grad()
     def decode_paged(self, params, tokens, pages, page_table, lengths,

@@ -1,17 +1,18 @@
 """Grouped-query attention with RoPE and qk-norm, every projection
 optionally hashed — the PyTorch port of the JAX package's
-``nn/attention.py``: the training branch (``apply`` without a cache,
-``attend``, ``_attend_unchunked``) and the paged serving paths.
+``nn/attention.py``: ``apply`` without a cache (training) and with a
+dense KV cache (the engine's scratch-cache prefill, ``decode_step``),
+``attend``, ``_attend_unchunked`` and the paged serving paths.
 
-Shapes: x (B, S, d_model); page pools (P, page_size, n_kv, head_dim)
-per k/v.  GQA runs without repeating K/V; scores and softmax are fp32.
+Shapes: x (B, S, d_model); dense cache (B, T_max, n_kv, head_dim) and
+page pools (P, page_size, n_kv, head_dim) per k/v.  GQA runs without
+repeating K/V; scores and softmax are fp32.
 
-PyTorch runs eagerly, so the pools are updated in place: the JAX
-package returns new pools and the engine donates the old ones
-(``serving/engine.py`` ``donate_argnums``), which XLA turns into the
-same in-place update.  Not ported yet: the dense KV cache of ``apply``
-(the scratch-cache prefill and ``decode_step``), cross-attention, and
-the spec-decode ``apply_paged_block`` (ROADMAP Queue A items 4 and 8).
+PyTorch runs eagerly, so caches and pools are updated in place: the JAX
+package returns new ones (the engine donates the paged pools,
+``serving/engine.py`` ``donate_argnums``, which XLA turns into the same
+in-place update).  Not ported yet: cross-attention and the spec-decode
+``apply_paged_block`` (ROADMAP Queue A items 11 and 8).
 """
 from __future__ import annotations
 
@@ -91,35 +92,48 @@ def _qkv(plan: AttentionPlan, params, x, positions):
 
 
 def attend(plan: AttentionPlan, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Causal grouped self-attention over a whole sequence, memory-bounded.
+           v: torch.Tensor, q_pos: torch.Tensor,
+           kv_pos: Optional[torch.Tensor] = None,
+           kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal grouped attention, memory-bounded.
 
-    q (B, S, Hq, D); k/v (B, S, Hkv, D); positions (S,).  Sequences longer
-    than 2048 run the queries in chunks of 512, so the live score tensor
-    is (B, Hkv, G, 512, S); every query row's softmax still spans all keys,
-    so the result equals the unchunked one.  Returns (B, S, Hq * D).
+    q (B, S, Hq, D); k/v (B, T, Hkv, D); q_pos (S,) or (B, S) query
+    positions; kv_pos (T,) key positions (default q_pos: self-attention
+    over the sequence); kv_valid (T,) or (B, T), whether a key slot holds
+    a real key (default all).  Sequences longer than 2048 run the
+    queries in chunks of 512, so the live score tensor is (B, Hkv, G,
+    512, T); every query row's softmax still spans all keys, so the
+    result equals the unchunked one.  Returns (B, S, Hq * D).
     """
     s = q.shape[1]
+    if kv_pos is None:
+        kv_pos = q_pos
+    if kv_valid is None:
+        kv_valid = torch.ones(kv_pos.shape[-1:], dtype=torch.bool,
+                              device=q.device)
     if s <= 2048:
-        return _attend_unchunked(plan, q, k, v, positions, positions)
+        return _attend_unchunked(plan, q, k, v, q_pos, kv_pos, kv_valid)
     return torch.cat([
         _attend_unchunked(plan, q[:, c0:c0 + 512], k, v,
-                          positions[c0:c0 + 512], positions)
+                          q_pos[..., c0:c0 + 512], kv_pos, kv_valid)
         for c0 in range(0, s, 512)], dim=1)
 
 
-def _attend_unchunked(plan: AttentionPlan, q, k, v, q_pos,
-                      kv_pos) -> torch.Tensor:
+def _attend_unchunked(plan: AttentionPlan, q, k, v, q_pos, kv_pos,
+                      kv_valid) -> torch.Tensor:
     b, s, hq, d = q.shape
     n_kv = plan.num_kv_heads
     qg = q.reshape(b, s, n_kv, hq // n_kv, d)
     scores = torch.einsum("bskgd,btkd->bkgst",
                           qg.float() * (1.0 / math.sqrt(d)), k.float())
-    dist = q_pos[:, None] - kv_pos[None, :]              # (S, T)
-    mask = dist >= 0
+    # q_pos (S,) or (B, S), kv_valid (T,) or (B, T): masks (B|1, S, T)
+    qp = q_pos if q_pos.dim() == 2 else q_pos[None, :]
+    valid = kv_valid if kv_valid.dim() == 2 else kv_valid[None, :]
+    dist = qp[:, :, None] - kv_pos[None, None, :]
+    mask = valid[:, None, :] & (dist >= 0)
     if plan.sliding_window > 0:
         mask = mask & (dist < plan.sliding_window)
-    scores = torch.where(mask, scores, torch.tensor(
+    scores = torch.where(mask[:, None, None], scores, torch.tensor(
         -1e30, dtype=torch.float32, device=scores.device))
     probs = torch.softmax(scores, dim=-1)
     # bf16 probs for the value product, as the JAX package does
@@ -127,13 +141,50 @@ def _attend_unchunked(plan: AttentionPlan, q, k, v, q_pos,
     return out.reshape(b, s, hq * d).to(plan.dtype)
 
 
+def init_cache(plan: AttentionPlan, batch: int, max_len: int, device):
+    """A zero dense KV cache (k, v), each (B, max_len, Hkv, D)."""
+    shape = (batch, max_len, plan.num_kv_heads, plan.head_dim)
+    return (torch.zeros(shape, dtype=plan.dtype, device=device),
+            torch.zeros(shape, dtype=plan.dtype, device=device))
+
+
 def apply(plan: AttentionPlan, params, x: torch.Tensor, *,
-          positions: torch.Tensor) -> torch.Tensor:
-    """Self-attention over the whole sequence without a cache (the JAX
-    package's ``apply`` with ``cache=None``: training).  x (B, S, d);
-    positions (S,).  Returns (B, S, d_model)."""
+          positions: torch.Tensor, cache=None,
+          cache_index=None) -> torch.Tensor:
+    """Self-attention.  x (B, S, d); positions (S,) or (B, S).  Returns
+    (B, S, d_model).
+
+    - ``cache=None`` (training): attends within x.
+    - ``cache=(ck, cv)``, each (B, T_max, Hkv, D): the step's K/V are
+      written in place at ``cache_index`` (an int, or a (B,) tensor of
+      per-row offsets) and the queries attend over the cache's slots
+      below ``cache_index + S``.  A write past ``T_max`` is an error (the
+      JAX package's ``dynamic_update_slice`` would clamp it, shifting
+      the write).
+    """
+    s = x.shape[1]
     q, k, v = _qkv(plan, params, x, positions)
-    out = attend(plan, q, k, v, positions)
+    if cache is None:
+        out = attend(plan, q, k, v, positions)
+    else:
+        ck, cv = cache
+        t_max = ck.shape[1]
+        kv_pos = torch.arange(t_max, device=x.device)
+        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+            idx = cache_index.to(device=x.device, dtype=torch.int64)
+            assert int(idx.max()) + s <= t_max, (idx.tolist(), s, t_max)
+            rows = torch.arange(x.shape[0], device=x.device)[:, None]
+            cols = idx[:, None] + torch.arange(s, device=x.device)[None, :]
+            ck[rows, cols] = k.to(ck.dtype)
+            cv[rows, cols] = v.to(cv.dtype)
+            kv_valid = kv_pos[None, :] < (idx[:, None] + s)       # (B, T)
+        else:
+            idx = int(cache_index)
+            assert idx + s <= t_max, (idx, s, t_max)
+            ck[:, idx:idx + s] = k.to(ck.dtype)
+            cv[:, idx:idx + s] = v.to(cv.dtype)
+            kv_valid = kv_pos < idx + s
+        out = attend(plan, q, ck, cv, positions, kv_pos, kv_valid)
     return L.linear_apply(plan.lin("o"), params["o"], out)
 
 

@@ -14,6 +14,12 @@ of the JAX package's ``serving/engine.py``, paged decoder path).
   rows of one compile bucket in ONE ragged dispatch
   (``kernels.flash_prefill``) that writes fresh K/V straight into each
   row's private pages and reads shared prefix pages through the table.
+- **Sequential scratch-cache prefill** (``batched_prefill=False``, and
+  rows that cannot be bucketed: requests with ``extras``): each row
+  prefills its chunk alone through the model's dense cache
+  (``Model.prefill``), a batch=1 scratch of its own, and its pages
+  ``[lo, hi)`` are copied into the pool; a prefix hit gathers the shared
+  pages into a fresh scratch first.  Tokens equal the batched path's.
 - **Sampling**: one fused sampler call per decode tick
   (``serving.sampling``), every ``SamplingParams`` knob a per-row tensor.
 - Admission and retirement happen every tick through the scheduler
@@ -25,13 +31,16 @@ in place by the model and by the copy-on-write page copy, where the JAX
 engine donates the pools to its jitted calls (``donate_argnums``) and XLA
 updates them in place.
 
-Not ported yet, each raising ``NotImplementedError``: the scratch-cache
-sequential prefill (``batched_prefill=False``, and requests with
-``extras``; ROADMAP Queue A item 4), the dense-cache backend of the
-non-decoder kinds (item 11), speculative decoding (item 8),
-tensor-parallel serving (item 12), artifact cold start (item 5), and
-the multi-model hosting knobs and graceful drain of the front door
-(item 10).
+The JAX package shares one zero scratch cache among all rows because it
+never mutates it; here a row takes a scratch of its own at its first
+chunk and drops it on completion or preemption.
+
+Not ported yet, each raising ``NotImplementedError``: the dense-cache
+backend of the non-decoder kinds and image or encoder content in
+``extras`` (ROADMAP Queue A item 11; a decoder row with extras is
+prefilled unbucketed and the extras are not read), speculative decoding
+(item 8), tensor-parallel serving (item 12), artifact cold start (item
+5), and the multi-model hosting knobs of the front door (item 10).
 """
 from __future__ import annotations
 
@@ -48,9 +57,10 @@ from repro_torch.models.transformer import Model
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import ENGINE_PID, REQUEST_PID, Tracer
 from repro_torch.serving import sampling as sampling_lib
-from repro_torch.serving.api import (FINISH_DEADLINE, FINISH_LENGTH,
-                                     FINISH_REASONS, FINISH_STOP,
-                                     RequestHandle, SamplingParams)
+from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_DEADLINE,
+                                     FINISH_LENGTH, FINISH_REASONS,
+                                     FINISH_STOP, RequestHandle,
+                                     SamplingParams)
 from repro_torch.serving.paged_cache import TRASH_PAGE, PagedKVCache
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
@@ -71,7 +81,7 @@ class Request:
     # filled by the engine
     tokens: Optional[List[int]] = None
     done: bool = False
-    extras: Optional[Dict[str, Any]] = None
+    extras: Optional[Dict[str, Any]] = None   # frames / image_embeds
     status: str = "new"
     submit_time: Optional[float] = None
     first_admit_time: Optional[float] = None
@@ -108,8 +118,38 @@ class _Prefill:
     """In-flight chunked prefill for one row."""
     req: Request
     feed: np.ndarray          # prompt + pre-preemption tokens
-    target: int               # cached positions when complete
+    target: int               # cached positions when complete (feed+extras)
     pos: int                  # cached positions so far (starts at prefix hit)
+    cache: Any = None         # the row's batch=1 scratch cache (sequential)
+    chunkable: bool = True    # bucketed decoder row without extras
+
+
+def _copy_pages(pages, ck, cv, pids: torch.Tensor, lo: int, hi: int) -> None:
+    """Land a scratch cache's pages ``[lo, hi)`` in the pool, in place.
+
+    ck/cv: (nl, 1, max_len, n_kv, hd); pages {"k","v"} (nl, P, ps, n_kv,
+    hd); ``pids`` (hi - lo,) the physical pages of logical pages lo..hi.
+    Nothing else is written (the JAX package writes the other slots to
+    the trash page so that one compile covers every chunk)."""
+    if hi <= lo:
+        return
+    nl, _, _, hkv, hd = ck.shape
+    ps = pages["k"].shape[2]
+    for pool, c in ((pages["k"], ck), (pages["v"], cv)):
+        pool[:, pids] = c[:, 0, lo * ps:hi * ps].reshape(
+            nl, hi - lo, ps, hkv, hd).to(pool.dtype)
+
+
+def _gather_prefix(pages, pids: torch.Tensor, index: int):
+    """A fresh batch=1 scratch cache holding a row's (possibly shared)
+    prefix K/V, gathered from the pool through ``pids`` (MAXP,), to resume
+    a sequential prefill at ``index``.  Positions past the hit hold stale
+    pool values: the next chunk overwrites them or they stay masked."""
+    nl, _, ps, hkv, hd = pages["k"].shape
+    maxp = pids.shape[0]
+    return {"k": pages["k"][:, pids].reshape(nl, 1, maxp * ps, hkv, hd),
+            "v": pages["v"][:, pids].reshape(nl, 1, maxp * ps, hkv, hd),
+            "index": index}
 
 
 def _copy_page(pages, src: int, dst: int) -> None:
@@ -155,7 +195,10 @@ class Engine:
         "pallas" (the paged attention kernels; their plain versions on
         the CPU) or "ref" (the plain versions).  ``prefix_cache`` dedups
         shared prompt prefixes; ``prefill_chunk`` prefills long prompts N
-        tokens per tick (None = whole feed).  ``max_logprobs`` caps the
+        tokens per tick (None = whole feed).  ``batched_prefill`` (default
+        on) coalesces the prefill chunks of a tick into ragged dispatches;
+        off, each row prefills alone through its scratch cache, with the
+        same tokens.  ``max_logprobs`` caps the
         per-token top-K logprob report; ``seed`` seeds the stream that
         assigns sampling seeds to requests that did not pin one.
         ``metrics``/``tracer``/``debug_leak_check`` as in the JAX engine.
@@ -168,8 +211,6 @@ class Engine:
             raise _not_ported("speculative decoding", 8)
         if mesh is not None:
             raise _not_ported("tensor-parallel serving", 12)
-        if not batched_prefill:
-            raise _not_ported("scratch-cache sequential prefill", 4)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1: {prefill_chunk}")
         self.device = dev
@@ -185,6 +226,8 @@ class Engine:
             debug_leak_check or os.environ.get("REPRO_DEBUG_LEAK_CHECK"))
         self.prefix_cache = prefix_cache
         self.prefill_chunk = prefill_chunk
+        # off: every row prefills alone through its scratch cache
+        self.batched_prefill = bool(batched_prefill)
         self.sched = Scheduler(scheduler or SchedulerConfig(),
                                metrics=self.metrics)
         self.rows: List[Optional[Request]] = [None] * rows
@@ -238,13 +281,15 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _extra_tokens(self, req: Request) -> int:
+        if req.extras and "image_embeds" in req.extras:
+            return self.model.cfg.num_image_tokens
+        return 0
+
     def submit(self, req: Request) -> RequestHandle:
         """Enqueue a request.  Returns a ``RequestHandle``, truthy iff
         accepted (falsy: backpressure on the bounded queue, or the
         request could never fit the page pool)."""
-        if req.extras:
-            raise _not_ported("requests with extras (image tokens, "
-                              "encoder frames)", 11)
         if req.tokens is None:
             req.tokens = []
         sp = req.sampling
@@ -252,7 +297,7 @@ class Engine:
             raise ValueError(
                 f"logprobs={sp.logprobs} exceeds engine "
                 f"max_logprobs={self._logprob_k}")
-        total = len(req.prompt) + sp.max_tokens
+        total = len(req.prompt) + self._extra_tokens(req) + sp.max_tokens
         if not self.kv.fits_ever(total) \
                 or not self.sched.submit(req, _now_mono()):
             req.status = "rejected"
@@ -274,6 +319,13 @@ class Engine:
     def _free_rows(self) -> List[int]:
         return [i for i, r in enumerate(self.rows) if r is None]
 
+    def _can_bucket(self, req: Request) -> bool:
+        """Pad-and-mask bucketing (and chunking) holds for a decoder row
+        without extras: pads after the prompt are causally invisible.
+        Extras (image tokens, encoder frames) shift positions, so those
+        rows prefill exact-length, in one step."""
+        return self.model.cfg.arch_kind == "decoder" and not req.extras
+
     def _feed(self, req: Request) -> np.ndarray:
         """Prefill token feed: the prompt plus anything generated before a
         preemption (re-prefilling recomputes the evicted K/V)."""
@@ -283,10 +335,16 @@ class Engine:
         return np.asarray(req.prompt, np.int32)
 
     def _prefix_ids(self, req: Request) -> Optional[np.ndarray]:
-        return self._feed(req) if self.kv.prefix is not None else None
+        """Token ids for prefix matching and indexing, or None: rows with
+        extras stay out of the tree (their feed ids do not spell what
+        they cache)."""
+        if self.kv.prefix is not None and self._can_bucket(req):
+            return self._feed(req)
+        return None
 
     def _can_admit(self, req: Request) -> bool:
-        feed = len(req.prompt) + len(req.tokens or ())
+        feed = len(req.prompt) + len(req.tokens or ()) \
+            + self._extra_tokens(req)
         return self.kv.can_admit(feed, token_ids=self._prefix_ids(req))
 
     def _admit(self, now: float) -> int:
@@ -321,24 +379,36 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _begin_prefill(self, row: int, req: Request, now: float) -> bool:
-        """Bind a row: allocate/share pages.  False if the pool came up
-        short (the caller re-queues)."""
+        """Bind a row: allocate/share pages, and on the sequential path
+        seed a scratch cache from any prefix hit.  False if the pool came
+        up short (the caller re-queues)."""
         feed = self._feed(req)
-        target = len(feed)
+        target = len(feed) + self._extra_tokens(req)
         if not self.kv.admit_row(row, target,
                                  token_ids=self._prefix_ids(req)):
             return False
-        hit = self.kv.row_meta[row].hit_tokens
         meta = self.kv.row_meta[row]
-        if hit > 0 and meta.tail_page is not None:
+        hit = meta.hit_tokens
+        chunkable = self._can_bucket(req)
+        cache = None
+        if hit > 0 and self.batched_prefill and chunkable:
             # the ragged kernel reads the shared prefix through the page
             # table; only the partial boundary page needs a private
             # replica (its hit bytes are read, never recomputed)
-            dst = int(self.kv.table[row, meta.shared])
-            _copy_page(self.pages, int(meta.tail_page), dst)
+            if meta.tail_page is not None:
+                dst = int(self.kv.table[row, meta.shared])
+                _copy_page(self.pages, int(meta.tail_page), dst)
+                self.kv.drop_tail_ref(row)
+        elif hit > 0:
+            # sequential path: the prefix (the boundary page from its
+            # pinned source) gathered into a fresh scratch
+            cache = _gather_prefix(
+                self.pages, self._tensor(self.kv.gather_table(row)).long(),
+                hit)
             self.kv.drop_tail_ref(row)
         self._prefilling[row] = _Prefill(req=req, feed=feed, target=target,
-                                         pos=hit)
+                                         pos=hit, cache=cache,
+                                         chunkable=chunkable)
         self.rows[row] = req
         self._sampler_state.bind(row, req)
         self._seq += 1
@@ -380,6 +450,54 @@ class Engine:
                                f"{self.max_len}")
         return start, b, b
 
+    def _advance_prefill(self, row: int) -> None:
+        """One sequential chunk step: compute the next positions against
+        the row's scratch cache, land their pages, and on completion
+        sample the first token and hand the row to decode."""
+        st = self._prefilling[row]
+        req = st.req
+        t0 = time.perf_counter()
+        tr0 = self.tracer.now()
+        pos0 = st.pos
+        remaining = len(st.feed) - (st.pos if st.chunkable else 0)
+        c = remaining if (self.prefill_chunk is None or not st.chunkable) \
+            else min(self.prefill_chunk, remaining)
+        if st.cache is None:            # the row's first chunk
+            st.cache = self.model.init_cache(1, self.max_len)
+        cache = st.cache
+        if st.chunkable:
+            start, bucket, real = self._chunk_shape(st.pos, c)
+            if start != st.pos:
+                # slid-back window: rewind the write index; positions
+                # [start, pos) recompute to the same values
+                cache = dict(cache, index=start)
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :real] = st.feed[start:start + real]
+            batch = {"tokens": self._tensor(toks), "cache": cache,
+                     "length": real}
+        else:
+            batch = {"tokens": self._tensor(st.feed[None, :].astype(
+                np.int64)), "cache": cache}
+            batch.update({k: self._tensor(np.asarray(v))
+                          for k, v in (req.extras or {}).items()})
+        logits, st.cache = self.model.prefill(self.params, batch)
+        new_pos = int(st.cache["index"])
+        # land the fresh positions' pages; shared prefix pages (below
+        # first_private_page) are never written
+        lo = max(st.pos // self.kv.page_size,
+                 self.kv.first_private_page(row))
+        hi = self.kv.pages_for(new_pos)
+        _copy_pages(self.pages, st.cache["k"], st.cache["v"],
+                    self._tensor(self.kv.table[row, lo:hi]).long(), lo, hi)
+        st.pos = new_pos
+        self._h_chunk.observe(time.perf_counter() - t0)
+        if self.tracer.enabled:
+            self.tracer.complete(REQUEST_PID, req.uid, "prefill_chunk",
+                                 tr0, start=pos0, end=st.pos)
+        if st.pos < st.target:
+            return
+        self._complete_prefill(row, logits[:, -1, :self._vocab])
+
     def _complete_prefill(self, row: int, last_logits) -> None:
         """Prefill complete: publish the feed's full pages for reuse,
         sample the first token off ``last_logits`` (1, V) and hand the
@@ -396,12 +514,22 @@ class Engine:
         self._note_first_token(req)
 
     def _advance_rows(self, rows_: List[int]) -> int:
-        """Advance each row's prefill by one chunk step: one ragged
-        dispatch per compile bucket, completions in admission order.
-        Returns the number of chunk steps."""
+        """Advance each row's prefill by one chunk step.  Chunkable rows
+        coalesce into one ragged dispatch per compile bucket
+        (``batched_prefill``); the others take the sequential
+        scratch-cache path.  Completions run in admission order either
+        way.  Returns the number of chunk steps."""
+        if not (self.batched_prefill and rows_):
+            for row in rows_:
+                self._advance_prefill(row)
+            return len(rows_)
         groups: Dict[int, List[Tuple[int, int, int]]] = {}
         for row in rows_:
             st = self._prefilling[row]
+            if not st.chunkable:
+                self._pb_counts["fallback_chunks"] += 1
+                self._advance_prefill(row)
+                continue
             remaining = len(st.feed) - st.pos
             c = remaining if self.prefill_chunk is None \
                 else min(self.prefill_chunk, remaining)
@@ -696,6 +824,28 @@ class Engine:
         rows."""
         return bool(len(self.sched) or any(r is not None for r in self.rows))
 
+    def cancel_queued(self) -> List[Request]:
+        """Graceful-drain entry: remove every still-queued request and mark
+        it terminal with ``finish_reason="cancelled"`` (a streaming client
+        sees a terminal delta).  In-flight rows are untouched: keep
+        ticking until ``pending()`` clears to let them finish."""
+        now = _now_mono()
+        out: List[Request] = []
+        for r in self.sched.drain():
+            r.status = "cancelled"
+            r.finish_reason = FINISH_CANCELLED
+            r.finish_mono = now
+            r.finish_time = _now_wall()
+            self._counts["cancelled"] += 1
+            self._counts["failed"] += 1
+            if self.tracer.enabled:
+                self.tracer.end(REQUEST_PID, r.uid, "queued")
+                self.tracer.end(REQUEST_PID, r.uid, "request",
+                                finish=FINISH_CANCELLED)
+            self._failed.append(r)
+            out.append(r)
+        return out
+
     def run(self, max_ticks: int = 10000) -> List[Request]:
         ticks = 0
         while self.pending() and ticks < max_ticks:
@@ -741,3 +891,27 @@ class Engine:
         out["pages_free"] = self.kv.alloc.num_free
         out.update(self.kv.prefix_stats())
         return out
+
+
+def generate_batch(model: Model, params, prompts: List[np.ndarray],
+                   max_new_tokens: int = 32, max_len: int = 512,
+                   slots: int = 4, eos_id: int = 1,
+                   extras: Optional[List[Dict]] = None,
+                   sampling: Optional[List[SamplingParams]] = None,
+                   **kwargs) -> List[List[int]]:
+    """Submit every prompt, run to completion, return the tokens in prompt
+    order.  ``sampling``: optional per-prompt SamplingParams (its
+    max_tokens overrides ``max_new_tokens``).  The queue bound is sized
+    to the batch."""
+    kwargs.setdefault("scheduler",
+                      SchedulerConfig(max_queue=max(len(prompts), 1)))
+    eng = Engine(model, params, slots=slots, max_len=max_len, eos_id=eos_id,
+                 **kwargs)
+    for i, p in enumerate(prompts):
+        ok = eng.submit(Request(uid=i, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=max_new_tokens,
+                                sampling=sampling[i] if sampling else None,
+                                extras=extras[i] if extras else None))
+        assert ok, f"request {i} rejected (queue/pool sizing)"
+    done = eng.run()
+    return [r.tokens for r in sorted(done, key=lambda r: r.uid)]

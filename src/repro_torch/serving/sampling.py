@@ -13,13 +13,13 @@ tensor.  The stages, in order:
 3. **Temperature -> top-k -> top-p -> min-p** truncation.  Top-k is the
    radix-select kernel (``kernels.topk``; its plain version on the CPU).
 4. **Gumbel-argmax sampling** with noise that is a pure function of
-   (request seed, generated-token index): a ``torch.Generator`` seeded
-   from the pair draws each sampled row's field, so preemption-recompute
-   and prefix-cache replay reproduce every draw.  The JAX package draws
-   its noise from ``jax.random`` threefry and so gets other numbers;
-   ``sample_tokens`` takes the noise as an optional argument so tests
-   can feed both packages the same field.  Greedy rows (temperature 0)
-   take ``argmax`` of the penalized logits.
+   (request seed, generated-token index): row b's field is
+   ``jax.random.gumbel`` of the key ``fold_in(fold_in(PRNGKey(20150406),
+   seed[b]), pos[b])``, drawn by the port's own Threefry
+   (``core.threefry``), so a seeded request samples the JAX engine's
+   tokens, and preemption-recompute and prefix-cache replay reproduce
+   every draw.  Greedy rows (temperature 0) take ``argmax`` of the
+   penalized logits.
 
 ``SamplerState`` (host-side per-row knob mirror) and ``FusedSampler``
 (dispatch surface + ``sampler.*`` metrics) keep the JAX package's
@@ -34,7 +34,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.hashing import derive_seed
+from repro_torch.core import threefry
 from repro_torch.kernels.topk import NEG, topk_mask
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import ENGINE_PID, Tracer
@@ -82,18 +82,21 @@ def minp_mask(z, min_p, fill=NEG):
 
 def gumbel_noise(seeds, positions, vocab: int, device,
                  rows: Optional[List[int]] = None) -> torch.Tensor:
-    """(B, vocab) Gumbel field, row b a pure function of (seeds[b],
-    positions[b]).  Only ``rows`` (default all) are drawn; the others
-    are zeros (greedy rows never read theirs)."""
+    """(B, vocab) Gumbel field, row b drawn from the key
+    ``fold_in(fold_in(PRNGKey(20150406), seeds[b]), positions[b])`` as
+    the JAX package's ``_row_key`` makes it.  Only ``rows`` (default all)
+    are drawn, together: their keys on the host, their fields on
+    ``device``.  The others are zeros (greedy rows never read theirs)."""
     b = len(seeds)
+    rows = list(range(b)) if rows is None else list(rows)
     g = torch.zeros((b, vocab), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for i in (range(b) if rows is None else rows):
-        gen = torch.Generator(device=device)
-        key = derive_seed(_BASE_KEY_SEED, int(seeds[i]) & 0xFFFFFFFF)
-        gen.manual_seed((key << 32) | (int(positions[i]) & 0xFFFFFFFF))
-        u = torch.rand(vocab, generator=gen, device=device)
-        g[i] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    if not rows:
+        return g
+    key = threefry.fold_in(threefry.prng_key(_BASE_KEY_SEED),
+                           [int(seeds[i]) for i in rows])
+    key = threefry.fold_in(key, [int(positions[i]) for i in rows])
+    k1, k2 = torch.from_numpy(np.stack(key)).to(device)
+    g[torch.tensor(rows, device=device)] = threefry.gumbel((k1, k2), vocab)
     return g
 
 

@@ -39,7 +39,9 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
     """(keystr, leaf) pairs in JAX's flatten order: dict keys sorted,
-    sequences in order."""
+    lists and tuples in order, ``None`` an empty subtree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], f"{prefix}/[{k!r}]")]
@@ -53,6 +55,8 @@ def _unflatten(like, leaves):
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
@@ -136,10 +140,18 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, target, step: Optional[int] = None):
+def restore(directory: str, target, step: Optional[int] = None,
+            prefix: Optional[str] = None):
     """Load a checkpoint (default the latest committed step) into the
     structure of ``target``, a tree of tensors: each leaf comes back with
-    the shape, dtype and device of its target leaf."""
+    the shape, dtype and device of its target leaf.
+
+    ``prefix`` (a key such as ``"['params']"``) restores one subtree of
+    the saved state: ``target`` is shaped like that subtree, and each of
+    its leaves is the saved leaf whose key is ``prefix/<its own key>``.
+    Leaves are matched by key only; a key missing on either side
+    raises.  This loads the params of a whole train state whatever its
+    optimizer state holds."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -148,14 +160,24 @@ def restore(directory: str, target, step: Optional[int] = None):
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     kv = _flatten(target)
-    if len(kv) != len(manifest["leaves"]):
+    by_key = {m["key"]: m for m in manifest["leaves"]}
+    if prefix is not None:
+        kv = [(f"{prefix}/{key}", tgt) for key, tgt in kv]
+        saved = {k for k in by_key if k.startswith(prefix + "/")}
+        missing = sorted({key for key, _ in kv} - saved)
+        extra = sorted(saved - {key for key, _ in kv})
+        if missing or extra:
+            raise ValueError(
+                f"checkpoint subtree {prefix} does not match the target: "
+                f"missing {missing[:4]}, unexpected {extra[:4]}")
+    elif len(kv) != len(manifest["leaves"]):
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, target has "
             f"{len(kv)} — structure mismatch")
-    by_key = {m["key"]: m for m in manifest["leaves"]}
     leaves = []
     for i, (key, tgt) in enumerate(kv):
-        meta = by_key.get(key) or manifest["leaves"][i]
+        meta = by_key[key] if prefix is not None \
+            else by_key.get(key) or manifest["leaves"][i]
         t = _load_leaf(os.path.join(path, meta["file"]), meta["dtype"])
         if tuple(t.shape) != tuple(tgt.shape):
             raise ValueError(f"{key}: ckpt {tuple(t.shape)} != target "

@@ -27,32 +27,49 @@ class Optimizer(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# dict trees
+# trees (jax.tree_util's rules: dicts in sorted key order, lists and tuples
+# in order, None an empty subtree)
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of ``tree`` and the matching nodes of
+    ``rest``; a ``None`` in ``tree`` holds no leaf and stays ``None``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in tree_leaves
-    order)."""
+    order); its ``None`` nodes stay ``None``."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
 
 
 def _unzip(tree, n: int):
     """A tree of n-tuples -> n trees."""
-    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
+    return tuple(tree_map(lambda t, i=i: t[i], tree,
+                          is_leaf=lambda x: isinstance(x, tuple))
+                 for i in range(n))
 
 
 # ---------------------------------------------------------------------------

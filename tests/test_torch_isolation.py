@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
 - In a subprocess with ``sys.modules["jax"] = None`` (so any JAX import
-  fails), import ``repro_torch``, serve two requests on the CPU, train
+  fails), import ``repro_torch``, serve two requests on the CPU, then a
+  greedy and a seeded sampled request with ``batched_prefill=False``, train
   two steps through ``launch.train`` (with a checkpoint and gradient
   compression), run the hashed GEMM's forward and backward wrappers in
   both modes, import the paper's MLPs, their data and the trainer's
@@ -37,6 +38,16 @@ eng = Engine(model, model.init(0), device="cpu", max_len=32, eos_id=-1)
 for uid in range(2):
     assert eng.submit(Request(uid=uid, prompt=np.arange(5, dtype=np.int32)
                               + 2 + uid, max_new_tokens=3))
+done = eng.run()
+assert sorted(len(r.tokens) for r in done) == [3, 3], done
+from repro_torch.serving.api import SamplingParams
+eng = Engine(model, model.init(0), device="cpu", max_len=32, eos_id=-1,
+             batched_prefill=False)
+assert eng.submit(Request(uid=0, prompt=np.arange(6, dtype=np.int32) + 2,
+                          max_new_tokens=3))
+assert eng.submit(Request(uid=1, prompt=np.arange(4, dtype=np.int32) + 9,
+                          sampling=SamplingParams(temperature=0.8, top_k=5,
+                                                  seed=3, max_tokens=3)))
 done = eng.run()
 assert sorted(len(r.tokens) for r in done) == [3, 3], done
 import torch
