@@ -52,6 +52,28 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
    its time; ``launch.serve.main --ckpt-dir --stream --stop`` on a params
    checkpoint of ``model.init(1)``, its greedy tokens equal to an
    in-process engine's;
+4c. export phase 4's params as ``.hnart`` artifacts, unquantized, int8
+   and fp8 (bytes, export seconds, ``report`` totals), register the
+   unquantized one and cold-start ``Engine.from_artifact`` from the
+   registry to its first token (seconds; the file cache warm): every
+   leaf bitwise the saved one, phase 4's requests giving phase 4's
+   greedy tokens through every serving kernel and no plain version; the
+   int8 and fp8 leaves within ``max_abs_error`` of the originals and one
+   decode step's logits printed against phase 4's (finite);
+   ``launch.serve --model-name --registry`` and ``--artifact`` giving an
+   in-process engine's greedy tokens; ``registry_cli verify`` exiting 0;
+4d. self-speculative decoding, k = 3 (a verify block of 16 rows): on
+   phase 4's four decode feeds the block against 4 decode steps, each
+   sublayer fused alone printed as giving the step's bits or not, and
+   the default forms (``Model.block_forms``) bitwise in logits and
+   pages; the drafts "1/8" (every leaf aliased) and "1/16" (projected),
+   their seconds and bytes; phase 4's requests served with each draft
+   and with "1/16" at adaptive k: tokens phase 4's on every request, the
+   draft pool's leak audit clean, verify dispatches > 0, every serving
+   kernel launched and no plain version; accept rate, dispatches, wall
+   and device busy against phase 4's printed (no speed limit);
+   ``launch.serve --spec-draft 1/16 --spec-k 3`` giving the spec-off
+   engine's greedy tokens;
 5. profile a decode step and a prefill dispatch;
 6. train qwen3-1.7b-hashed8 at full width (remat on, AdamW, clip 1.0,
    lm_stream batches of B=4 x S=256), element mode and then block mode
@@ -79,8 +101,9 @@ and nothing of JAX or the JAX package.  Phases, each failing the script:
    4 epochs): test errors and median step times, each method's last
    epoch's loss (as the fit records it) below its first.
 
-Prints each phase's seconds, a JSON line of per-kernel numbers, then as
-its last line ``{"ok": true, "device": {...}}``.
+Prints each phase's seconds, a JSON line of per-kernel numbers (the
+serving kernels also with their launches in the 4c and 4d serve runs),
+then as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -112,6 +135,8 @@ SERVE_KERNELS = ("hashed_matmul", "paged_decode", "paged_prefill",
                  "topk_mask")
 MLP_KERNELS = ("hashed_matmul", "hashed_matmul_t", "hashed_dw")
 MLP_M = 50                     # the paper's minibatch
+SAMPLED = (2, 6)               # phase 4's seeded sampled requests
+SPEC_K = 3                     # phase 4d: a verify block of 4 x 4 rows
 
 
 def fail(msg: str) -> None:
@@ -753,6 +778,21 @@ def main() -> int:
         model, params, prompts, reqs, wall, feed, cfg, results)
     torch.cuda.empty_cache()
 
+    # -- 4c. compressed artifacts: export, registry, cold start ---------------
+    phases.start("4c artifact")
+    step4 = {"toks": torch.from_numpy(toks).to(dev), "tbl": tbl, "cnt": cnt,
+             "last": last, "logits": got[:, 0, :V]}
+    path_counts["serve artifact"] = artifact_phase(
+        model, params, prompts, reqs, step4, card)
+    torch.cuda.empty_cache()
+
+    # -- 4d. self-speculative decoding ----------------------------------------
+    phases.start("4d spec")
+    path_counts["serve spec"] = spec_phase(model, params, prompts, reqs,
+                                           wall, step4, card)
+    del step4
+    torch.cuda.empty_cache()
+
     # -- 5. where a decode step and a prefill dispatch spend their time -------
     phases.start("5 profile")
     steps = {
@@ -896,6 +936,12 @@ def main() -> int:
                "shape": case, "path": path}
         if name in more:
             row["cases"] = [dict(shape=c, **results[c]) for c in more[name]]
+        if name in SERVE_KERNELS:
+            # the artifact cold-start and speculative serve runs (4c, 4d)
+            row["artifact_serve_launches"] = \
+                path_counts["serve artifact"][name]["launches"]
+            row["spec_serve_launches"] = \
+                path_counts["serve spec"][name]["launches"]
         if name in MLP_KERNELS:
             # one forward and backward of 784-1000-10 at 1/64 (phase 7)
             row["mlp_step_launches"] = path_counts["mlp"][name]["launches"]
@@ -910,29 +956,40 @@ def main() -> int:
     return 0
 
 
-def serve_engine(model, params, prompts, batched: bool):
-    """Phase 4's engine (max concurrency 4, page size 16, prefix cache,
-    chunk 64, at most 4 chunk steps a tick) holding its 8 requests, rows
-    2 and 6 sampled; ``batched`` picks the ragged batched prefill or the
-    sequential scratch-cache one."""
-    from repro_torch.serving.api import SamplingParams
-    from repro_torch.serving.engine import Engine, Request
+def engine_knobs():
+    """Phase 4's engine knobs: max concurrency 4, page size 16, prefix
+    cache, chunk 64, at most 4 chunk steps a tick, the leak audit on."""
     from repro_torch.serving.scheduler import SchedulerConfig
-    eng = Engine(model, params, device=model.device, max_concurrency=4,
-                 max_len=256, eos_id=-1, page_size=16, prefix_cache=True,
-                 prefill_chunk=64, debug_leak_check=True,
-                 batched_prefill=batched,
-                 scheduler=SchedulerConfig(max_queue=16,
-                                           max_prefills_per_tick=4))
+    return dict(max_concurrency=4, max_len=256, eos_id=-1, page_size=16,
+                prefix_cache=True, prefill_chunk=64, debug_leak_check=True,
+                scheduler=SchedulerConfig(max_queue=16,
+                                          max_prefills_per_tick=4))
+
+
+def submit_requests(eng, prompts):
+    """Phase 4's 8 requests, rows 2 and 6 sampled (seeded), the others
+    greedy, 16 tokens each."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Request
     reqs = []
     for uid, p in enumerate(prompts):
         sp = SamplingParams(temperature=0.8, top_k=50, seed=uid,
-                            max_tokens=16) if uid in (2, 6) \
+                            max_tokens=16) if uid in SAMPLED \
             else SamplingParams(max_tokens=16)
         reqs.append(Request(uid=uid, prompt=p, sampling=sp))
         if not eng.submit(reqs[-1]):
             fail(f"request {uid} refused")
-    return eng, reqs
+    return reqs
+
+
+def serve_engine(model, params, prompts, batched: bool, **extra):
+    """Phase 4's engine holding its 8 requests; ``batched`` picks the
+    ragged batched prefill or the sequential scratch-cache one; ``extra``
+    (a draft, ``spec_k``) passes to the Engine."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(model, params, device=model.device,
+                 batched_prefill=batched, **engine_knobs(), **extra)
+    return eng, submit_requests(eng, prompts)
 
 
 def seq_serve_phase(model, params, prompts, reqs4, wall4, feeds, cfg,
@@ -1042,6 +1099,397 @@ def seq_serve_phase(model, params, prompts, reqs4, wall4, feeds, cfg,
     gumbel_check(dev, V, results)
     serve_ckpt_check(model, ["--arch", "qwen3-1.7b", "--hashed"])
     return counts_
+
+
+def _flat(tree):
+    from repro_torch.artifact.format import flatten_with_paths
+    return flatten_with_paths(tree)
+
+
+def _run_launcher(argv):
+    """``launch.serve.main(argv)`` in process: (exit code, {uid: tokens},
+    its standard output)."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(argv)
+    got = {}
+    for line in out.getvalue().splitlines():
+        m = re.match(r"^req (\d+): (\[[^\]]*\])  \(finish=(\w+)", line)
+        if m:
+            got[int(m.group(1))] = json.loads(m.group(2))
+    return rc, got, out.getvalue()
+
+
+def _launcher_want(model, params, n=4, max_new=8):
+    """The greedy tokens ``launch.serve`` gives its first ``n`` prompts
+    with its default knobs, from an in-process engine on ``params``."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine, Request
+    eng = Engine(model, params, device=model.device, max_concurrency=4,
+                 max_len=256, eos_id=-1)
+    for uid, p in enumerate(serve.prompts(n, model.cfg.vocab_size)):
+        eng.submit(Request(uid=uid, prompt=p,
+                           sampling=SamplingParams(max_tokens=max_new)))
+    eng.run()
+    return {r.uid: r.tokens for r in eng._done}
+
+
+def artifact_phase(model, params, prompts, reqs4, step, card) -> dict:
+    """Phase 4c: export the params as ``.hnart`` artifacts three ways
+    (unquantized, int8, fp8: bytes, export seconds, ``report`` totals),
+    register the unquantized one and cold-start an engine from the
+    registry (resolve with its sha256, map, one host-to-device copy) to
+    its first token, then serve phase 4's requests: every loaded leaf
+    bitwise the saved one, the greedy tokens phase 4's, every serving
+    kernel launched and no plain version on the card.  The int8 and fp8
+    files: every quantized leaf within ``max_abs_error`` of the original
+    (plus half a bf16 ulp for the restore cast), every other leaf
+    bitwise, and one decode step's logits printed against phase 4's
+    (finite, no other limit).  ``launch.serve --model-name --registry``
+    and ``--artifact`` give an in-process engine's greedy tokens, and
+    ``registry_cli verify`` exits 0.  Returns the cold engine's launch
+    counts."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import artifact
+    from repro_torch import kernels as K
+    from repro_torch.artifact import io as aio
+    from repro_torch.artifact import quant as Q
+    from repro_torch.artifact import registry as reg
+    from repro_torch.artifact import report
+    from repro_torch.launch import registry_cli
+    from repro_torch.serving.engine import Engine
+    cfg = model.cfg
+    V = cfg.vocab_size
+    d = tempfile.mkdtemp(prefix="chip_smoke_art_")
+    try:
+        files = {}
+        for quant in ("none", "int8", "fp8"):
+            path = os.path.join(d, f"m_{quant}.hnart")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            header = artifact.export_model(path, cfg, params, quant=quant)
+            dt = time.perf_counter() - t0
+            tot = report.totals(report.artifact_rows(header), header)
+            files[quant] = path
+            print(f"[4c] export {quant}: {os.path.getsize(path)} B in "
+                  f"{dt:.2f} s; report totals: virtual "
+                  f"{tot['virtual_bytes']} B, real {tot['real_bytes']} B, "
+                  f"disk {tot['disk_bytes']} B + header "
+                  f"{tot['header_bytes']} B, disk/dense "
+                  f"{tot['disk_ratio']:.4f}, real/virtual params "
+                  f"{tot['param_ratio']:.4f} ({card})", flush=True)
+        root = os.path.join(d, "reg")
+        t0 = time.perf_counter()
+        version = reg.register(root, cfg.name, files["none"])
+        t_reg = time.perf_counter() - t0
+
+        # cold start: resolve (sha256 read) + map + one H2D copy + engine,
+        # then the first token of phase 4's requests
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine.from_artifact(cfg.name, registry_root=root,
+                                   device=model.device, **engine_knobs())
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        K.reset_counts()
+        reqs = submit_requests(eng, prompts)
+        while not any(r.tokens for r in reqs):
+            eng.step()
+        t_first = time.perf_counter() - t0
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_ = K.counts()
+        stats = eng.stats()
+        eng.shutdown()
+        same_leaves = all(torch.equal(a, b) for (_, a), (_, b) in
+                          zip(_flat(params), _flat(eng.params)))
+        greedy = [u for u in range(len(reqs)) if u not in SAMPLED]
+        same_greedy = all(reqs[u].tokens == reqs4[u].tokens for u in greedy)
+        same_all = sum(r.tokens == q.tokens for r, q in zip(reqs, reqs4))
+        print(f"[4c] cold start {cfg.name}@{version} (registered in "
+              f"{t_reg:.2f} s): {t_load:.2f} s to params on the card, "
+              f"{t_first:.2f} s to the first token, {wall:.2f} s to serve "
+              f"all 8 (file cache warm: the file was written in this run; "
+              f"{card}); leaves bitwise the saved ones: {same_leaves}; "
+              f"greedy tokens phase 4's: {same_greedy}; all tokens equal "
+              f"in {same_all}/{len(reqs)}", flush=True)
+        print(f"    launch counts: {json.dumps(counts_)}", flush=True)
+        if not same_leaves:
+            fail("artifact: a loaded leaf differs from the saved one")
+        if not same_greedy:
+            fail("artifact: greedy tokens differ from phase 4's")
+        if stats["done"] != len(reqs) or eng.last_leak_error:
+            fail(f"artifact serving: {stats['done']} done, leak "
+                 f"{eng.last_leak_error}")
+        check_counts(counts_, SERVE_KERNELS, "artifact serving")
+        del eng
+
+        # int8 / fp8: leaves within the bound, one decode step's logits
+        zeros = torch.zeros(4, dtype=torch.int32, device=model.device)
+        for quant in ("int8", "fp8"):
+            hdr, mm = aio.open_artifact(files[quant])
+            _, qp = artifact.load(files[quant], device=model.device)
+            worst, n_q = 0.0, 0
+            for e, (p, a), (_, b) in zip(hdr["leaves"], _flat(params),
+                                         _flat(qp)):
+                if e["quant"] is None:
+                    if not torch.equal(a, b):
+                        fail(f"{quant} artifact: exact leaf {p} differs")
+                    continue
+                z = aio.read_leaf(hdr, mm, e, dequant=False)
+                bound = Q.max_abs_error(z.scheme, z.scales)
+                if a.dtype == torch.bfloat16:
+                    bound += 2.0 ** -8 * float(a.float().abs().max())
+                err = float((b.float() - a.float()).abs().max())
+                worst = max(worst, err / bound if bound else 0.0)
+                n_q += 1
+                if err > bound:
+                    fail(f"{quant} artifact: leaf {p} off by {err:.3e} > "
+                         f"its bound {bound:.3e}")
+            pages = model.init_paged_cache(4 * 16 + 1, 16)
+            model.prefill_paged(qp, step["toks"], pages, step["tbl"], zeros,
+                                step["cnt"], zeros)
+            lg = model.decode_paged(qp, step["last"], pages, step["tbl"],
+                                    step["cnt"])[:, 0, :V]
+            torch.cuda.synchronize()
+            err, rel = rel_err(lg, step["logits"])
+            agree = int((lg.argmax(-1) == step["logits"].argmax(-1)).sum())
+            print(f"[4c] {quant}: {n_q} quantized leaves within their "
+                  f"bound (worst err/bound {worst:.3f}); one decode step's "
+                  f"logits against phase 4's: max_abs_err={err:.3e} "
+                  f"rel={rel:.2e}, argmax equal on {agree}/4 rows "
+                  f"(measured, no limit; {card})", flush=True)
+            if not bool(torch.isfinite(lg).all()):
+                fail(f"{quant} artifact: non-finite logits")
+            del qp, pages, mm
+        torch.cuda.empty_cache()
+
+        # the launcher from the registry and from the file, and the CLI
+        want = _launcher_want(model, params)
+        for src in (["--model-name", f"{cfg.name}@{version}", "--registry",
+                     root], ["--artifact", files["none"]]):
+            rc, got, text = _run_launcher(src + ["--requests", "4",
+                                                 "--max-new", "8"])
+            secs = [ln for ln in text.splitlines()
+                    if ln.startswith("cold start from artifact")]
+            ok = rc == 0 and got == want and bool(secs)
+            print(f"[4c] launch.serve {src[0]}: {secs[0] if secs else '?'} "
+                  f"({card}); greedy tokens equal to the in-process "
+                  f"engine's: {got == want} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                print(text[-3000:], flush=True)
+                fail(f"launch.serve {src[0]} did not serve the artifact's "
+                     f"tokens")
+            torch.cuda.empty_cache()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = registry_cli.main(["--registry", root, "verify"])
+        print(f"[4c] registry_cli verify: exit {rc}; "
+              f"{out.getvalue().strip().splitlines()[-1]}", flush=True)
+        if rc != 0:
+            fail("registry_cli verify failed")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return counts_
+
+
+def spec_phase(model, params, prompts, reqs4, wall4, step, card) -> dict:
+    """Phase 4d: self-speculative decoding on phase 4's requests
+    (concurrency 4, k = SPEC_K: a verify block of 16 rows).  First, on
+    phase 4's four decode feeds, the verify block against k+1 successive
+    decode steps: each sublayer fused alone (the others per slot) printed
+    as giving the step's bits or not, and the default forms
+    (``Model.block_forms``) bitwise, logits and pages (the limit).  Then
+    the drafts "1/8" (every leaf aliased) and "1/16" (projected): their
+    derivation seconds and bytes; each served with fixed k and "1/16"
+    also with adaptive k: tokens phase 4's on every request, the draft
+    pool's leak audit clean, verify dispatches > 0, every serving kernel
+    launched and no plain version on the card; accept rate, dispatches,
+    wall, and the device busy of one steady tick against phase 4's path
+    printed, no speed limit.
+    Last, ``launch.serve --spec-draft 1/16 --spec-k 3`` against an
+    in-process engine's greedy tokens.  Returns the "1/16" run's launch
+    counts."""
+    from repro_torch import kernels as K
+    from repro_torch.models.transformer import BLOCK_SUBLAYERS
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import draft as D
+    cfg = model.cfg
+    V = cfg.vocab_size
+    dev = model.device
+    B, S = 4, SPEC_K + 1
+
+    # -- the verify block against k+1 decode steps ---------------------------
+    rng = np.random.default_rng(7)
+    blk = torch.cat([step["last"], torch.from_numpy(rng.integers(
+        2, V, (B, SPEC_K))).to(dev)], dim=1)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    pages0 = model.init_paged_cache(B * 16 + 1, 16)
+    model.prefill_paged(params, step["toks"], pages0, step["tbl"], zeros,
+                        step["cnt"], zeros)
+    pages_s = {k: v.clone() for k, v in pages0.items()}
+    want = torch.stack([model.decode_paged(
+        params, blk[:, s:s + 1], pages_s, step["tbl"], step["cnt"] + s)[:, 0]
+        for s in range(S)], dim=1)
+    counts = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def block(forms):
+        pages_b = {k: v.clone() for k, v in pages0.items()}
+        out = model.decode_paged_block(params, blk, pages_b, step["tbl"],
+                                       step["cnt"], counts, forms=forms)
+        torch.cuda.synchronize()
+        same_pages = all(torch.equal(pages_b[k], pages_s[k])
+                         for k in ("k", "v"))
+        return out, same_pages
+
+    measured = {}
+    for name in BLOCK_SUBLAYERS:
+        forms = {n: "slot" for n in BLOCK_SUBLAYERS}
+        forms[name] = "fused"
+        got, same_pages = block(forms)
+        measured[name] = bool(torch.equal(got, want)) and same_pages
+    got, _ = block({n: "fused" for n in BLOCK_SUBLAYERS})
+    err_fused = float((got.float() - want.float()).abs().max())
+    forms = model.block_forms(B, S)
+    got, same_pages = block(None)
+    bitwise = bool(torch.equal(got, want)) and same_pages
+    print(f"[4d] verify block B={B} x S={S} against {S} decode steps on "
+          f"phase 4's feeds: fused alone gives the step's bits: "
+          + ", ".join(f"{n} {'yes' if ok else 'no'}"
+                      for n, ok in measured.items())
+          + f"; all fused: max_abs_err {err_fused:.3e}; default forms "
+          + json.dumps(forms) + f": logits and pages bitwise {bitwise} "
+          f"({card})", flush=True)
+    if not bitwise:
+        fail("verify block: logits differ from the decode steps'")
+    del pages0, pages_s, want, got
+
+    # -- drafts ----------------------------------------------------------------
+    base_ptrs = {p: t.data_ptr() for p, t in _flat(params)}
+    drafts = {}
+    for ratio in ("1/8", "1/16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, dm, dp = D.build_draft(cfg, params, ratio)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        leaves = _flat(dp)
+        total = sum(t.numel() * t.element_size() for _, t in leaves)
+        own = sum(t.numel() * t.element_size() for p, t in leaves
+                  if t.data_ptr() != base_ptrs[p])
+        aliased = sum(t.data_ptr() == base_ptrs[p] for p, t in leaves)
+        print(f"[4d] draft {ratio}: derived in {dt:.2f} s, {total} B of "
+              f"params of which {own} B its own ({aliased}/{len(leaves)} "
+              f"leaves aliased to the served ones; {card})", flush=True)
+        if ratio == "1/8" and own:
+            fail("draft 1/8: a leaf was copied, not aliased")
+        drafts[ratio] = (dm, dp)
+
+    # -- serving ---------------------------------------------------------------
+    runs = [("off", None, False), ("1/8", "1/8", False),
+            ("1/16", "1/16", False), ("1/16 adaptive", "1/16", True)]
+    counts16 = None
+    for label, ratio, adaptive in runs:
+        extra = {} if ratio is None else dict(
+            draft=drafts[ratio], spec_k=SPEC_K, spec_adaptive=adaptive)
+        tracer = Tracer(enabled=True)
+        eng, reqs = serve_engine(model, params, prompts, batched=True,
+                                 tracer=tracer, **extra)
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_ = K.counts()
+        stats = eng.stats()
+        if eng.spec is not None:
+            eng.spec.leak_check()
+        eng.shutdown()
+        same = sum(r.tokens == q.tokens for r, q in zip(reqs, reqs4))
+        sp = stats.get("spec", {})
+        print(f"[4d] serve {label}: {stats['done']}/{len(reqs)} done in "
+              f"{wall:.2f} s (phase 4 {wall4:.2f} s), {stats['ticks']} "
+              f"ticks; tokens equal to phase 4's in {same}/{len(reqs)}"
+              + (f"; accept rate {sp['accept_rate']:.3f}, mean accept "
+                 f"length {sp['mean_accept_len']:.2f}, k {sp['k']}, "
+                 f"{sp['draft_dispatches']} draft / "
+                 f"{sp['verify_dispatches']} verify dispatches, "
+                 f"{sp['baseline_rows']} baseline rows" if sp else "")
+              + f" ({card})", flush=True)
+        span = {}
+        for ev in tracer.events:
+            if ev["ph"] == "X":
+                span[ev["name"]] = span.get(ev["name"], 0.0) + ev["dur"] / 1e6
+        if sp:
+            print(f"    host spans (tracer): ticks {span['tick']:.2f} s, "
+                  f"propose {span.get('spec:propose', 0.0):.2f} s, verify "
+                  f"{span['spec:verify']:.2f} s = "
+                  f"{100 * span['spec:verify'] / span['tick']:.1f} % of "
+                  f"the ticks' wall ({card})", flush=True)
+        print(f"    launch counts: {json.dumps(counts_)}", flush=True)
+        if same != len(reqs) or stats["done"] != len(reqs):
+            fail(f"spec serving {label}: tokens differ from phase 4's")
+        if eng.last_leak_error:
+            fail(f"spec serving {label}: leak: {eng.last_leak_error}")
+        if ratio is not None and sp["verify_dispatches"] <= 0:
+            fail(f"spec serving {label}: no verify dispatch")
+        check_counts(counts_, SERVE_KERNELS, f"spec serving {label}")
+        if label == "1/16":
+            counts16 = counts_
+        if label != "1/16 adaptive":
+            # device busy of one steady tick (every row decoding): a whole
+            # run's trace holds ~10^5 launches, minutes of the profiler's
+            # parsing
+            del eng
+            eng, _ = serve_engine(model, params, prompts, batched=True,
+                                  **extra)
+            for _ in range(64):
+                if not eng._prefilling and all(r is not None
+                                               for r in eng.rows):
+                    break
+                eng.step()
+            n0 = int(eng._counts["tokens"])
+            busy, top = _profile(eng.step, cpu=False)
+            n = int(eng._counts["tokens"]) - n0
+            print(f"    one steady tick: {n} tokens committed, device busy "
+                  + (f"{busy:.3f} ms = {busy / max(n, 1):.3f} ms a token "
+                     f"(profiler); top kernels: " + "; ".join(
+                         f"{k} {ms:.3f} ms {c}x" for k, ms, c in top[:4])
+                     if busy is not None else "not measured (no CUDA "
+                     "events in the trace)") + f" ({card})", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    del drafts
+
+    # -- the launcher ----------------------------------------------------------
+    want = _launcher_want(model, params)
+    rc, got, text = _run_launcher(["--arch", "qwen3-1.7b", "--hashed",
+                                   "--requests", "4", "--max-new", "8",
+                                   "--spec-draft", "1/16", "--spec-k",
+                                   str(SPEC_K)])
+    line = [ln for ln in text.splitlines() if ln.startswith("spec decode:")]
+    ok = rc == 0 and got == want and bool(line)
+    print(f"[4d] launch.serve --spec-draft 1/16 --spec-k {SPEC_K}: "
+          f"{line[0] if line else '?'} ({card}); greedy tokens equal to "
+          f"the in-process spec-off engine's: {got == want} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(text[-3000:], flush=True)
+        fail("launch.serve --spec-draft did not serve the spec-off tokens")
+    torch.cuda.empty_cache()
+    return counts16
 
 
 def gumbel_check(dev, V, results) -> None:

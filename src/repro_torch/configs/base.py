@@ -68,7 +68,7 @@ class ArchConfig:
     # the other paths would run plain PyTorch code instead of the kernel.
     hash_path: str = "pallas"
     hash_policy: Optional[CompressionPolicy] = None
-    # compressed artifact export (not ported yet: ROADMAP Queue A item 5)
+    # compressed artifact export (repro_torch.artifact)
     artifact_quant: str = "none"     # none | int8 | fp8 bank quantization
     artifact_group: int = 64         # per-group scale granularity
     # numerics / train

@@ -49,15 +49,15 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None):
 def params_to_numpy(tree):
     """The reverse of :func:`params_from_numpy`: nested dict of tensors ->
     the same nested dict of numpy arrays on the host, with the JAX
-    package's leaf paths; bf16 leaves come back as ``ml_dtypes.bfloat16``
-    (the numpy dtype JAX uses), bit for bit."""
+    package's leaf paths; bf16 leaves come back bit for bit as numpy's
+    "bfloat16" dtype, the one JAX uses (registered with numpy by the JAX
+    side's ``ml_dtypes``, which this module never imports)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
         return t.view(torch.int16).numpy().view(np.uint16) \
-            .view(ml_dtypes.bfloat16)
+            .view(np.dtype("bfloat16"))
     return t.numpy().copy()
 
 

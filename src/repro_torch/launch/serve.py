@@ -21,9 +21,18 @@ other flags are the JAX package's ``launch/serve.py`` ones:
   in-flight rows finish, and the metrics table prints; a second one
   exits with 130.
 
-Artifacts, speculative decoding and meshes are not ported yet (ROADMAP
-Queue A items 5, 8 and 12).  Prints per-request generations, the finish
-reasons and one summary JSON line.
+- ``--artifact FILE`` serves a compressed ``.hnart`` artifact, or
+  ``--model-name NAME[@VERSION] --registry ROOT`` a registered one (its
+  sha256 checked): the artifact carries its config and weights, so the
+  config and checkpoint flags are refused beside it;
+- ``--spec-draft 1/16`` (a ratio or a policy JSON) switches on
+  self-speculative decoding with a draft derived off the served weights,
+  ``--spec-k`` proposals a tick (``--spec-adaptive``: an accept-rate EWMA
+  varies the depth within [1, k]); the emitted tokens are the
+  non-speculative engine's, and an accept-rate line prints.
+
+Meshes are not ported yet (ROADMAP Queue A item 12).  Prints per-request
+generations, the finish reasons and one summary JSON line.
 """
 from __future__ import annotations
 
@@ -115,7 +124,8 @@ def serve_loop(eng: Engine, handles, drain: Drain,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True, choices=C.names())
+    p.add_argument("--arch", default=None, choices=C.names(),
+                   help="model config (not with --artifact/--model-name)")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--hashed", action="store_true")
     p.add_argument("--compression", type=float, default=None,
@@ -163,6 +173,23 @@ def main(argv=None) -> int:
                    help="print RequestOutput deltas as tokens land")
     p.add_argument("--ckpt-dir", default=None,
                    help="serve the params of the latest checkpoint here")
+    p.add_argument("--artifact", default=None,
+                   help="serve from a compressed model artifact file")
+    p.add_argument("--model-name", default=None,
+                   help="registered model name[@version] (with --registry)")
+    p.add_argument("--registry", default=None,
+                   help="model registry root for --model-name")
+    p.add_argument("--spec-draft", default=None, metavar="POLICY",
+                   help="self-speculative decoding: a compression ratio "
+                        "('1/16') or policy JSON naming the draft derived "
+                        "off the served weights; tokens stay the "
+                        "non-speculative engine's")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft proposals per tick (k_max with "
+                        "--spec-adaptive)")
+    p.add_argument("--spec-adaptive", action="store_true",
+                   help="vary the proposal depth within [1, --spec-k] "
+                        "from an accept-rate EWMA")
     p.add_argument("--metrics-out", default=None, metavar="FILE")
     p.add_argument("--trace-out", default=None, metavar="FILE")
     p.add_argument("--debug-leak-check", action="store_true")
@@ -173,45 +200,84 @@ def main(argv=None) -> int:
     concurrency = args.max_concurrency if args.max_concurrency is not None \
         else (args.slots if args.slots is not None else 4)
 
-    cfg = C.get(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
-    if args.policy or args.budget:
-        if args.hashed or args.compression is not None:
-            p.error("--policy/--budget replace --hashed/--compression")
-        pol = (policy.load(args.policy) if args.policy
-               else policy.CompressionPolicy())
-        if args.budget:
-            pol = dataclasses.replace(
-                pol, budget=policy.parse_ratio(args.budget))
-        cfg = cfg.policy_variant(pol)
-    elif args.hashed:
-        cfg = cfg.hashed_variant(args.compression
-                                 if args.compression is not None else 0.125)
-    cfg = cfg.with_(hash_path=args.hash_path)
-
-    model = build(cfg, device=args.device)
-    params = None
-    if args.ckpt_dir:
-        t0 = time.perf_counter()
-        params = load_params(model, args.ckpt_dir)
-        if params is not None:
-            print(f"loaded params from {args.ckpt_dir} "
-                  f"({time.perf_counter() - t0:.2f}s)")
-    if params is None:
-        params = model.init(0)
+    if args.artifact and args.model_name:
+        p.error("--artifact and --model-name are mutually exclusive")
+    if args.artifact and args.registry:
+        p.error("--registry goes with --model-name; a direct --artifact "
+                "path bypasses registry integrity checks")
+    if args.model_name and not args.registry:
+        p.error("--model-name requires --registry")
     tracer = Tracer(enabled=bool(args.trace_out))
-    eng = Engine(model, params, device=args.device,
-                 max_concurrency=concurrency, max_len=args.max_len,
-                 eos_id=-1, page_size=args.page_size,
-                 num_pages=args.num_pages, attn_impl=args.attn_impl,
-                 prefix_cache=args.prefix_cache,
-                 prefill_chunk=args.prefill_chunk,
-                 max_logprobs=max(8, args.logprobs or 0), tracer=tracer,
-                 debug_leak_check=args.debug_leak_check,
-                 scheduler=SchedulerConfig(policy=args.scheduler,
-                                           max_queue=args.queue_limit,
-                                           deadline_s=args.deadline))
+    engine_kwargs = dict(
+        device=args.device, max_concurrency=concurrency,
+        max_len=args.max_len, eos_id=-1, page_size=args.page_size,
+        num_pages=args.num_pages, attn_impl=args.attn_impl,
+        prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
+        max_logprobs=max(8, args.logprobs or 0), tracer=tracer,
+        debug_leak_check=args.debug_leak_check,
+        spec_k=args.spec_k, spec_adaptive=args.spec_adaptive,
+        scheduler=SchedulerConfig(policy=args.scheduler,
+                                  max_queue=args.queue_limit,
+                                  deadline_s=args.deadline))
+    if args.artifact or args.model_name:
+        # the artifact IS the model: config flags and checkpoints would be
+        # silently ignored, so the combination is refused
+        ignored = [flag for flag, on in [
+            ("--arch", args.arch), ("--ckpt-dir", args.ckpt_dir),
+            ("--hashed", args.hashed), ("--reduced", args.reduced),
+            ("--compression", args.compression is not None),
+            ("--policy", args.policy), ("--budget", args.budget)] if on]
+        if ignored:
+            p.error(f"{'/'.join(ignored)} cannot be combined with an "
+                    f"artifact source (the artifact carries its own "
+                    f"config and weights)")
+        t_load = time.perf_counter()
+        eng = Engine.from_artifact(
+            args.artifact or args.model_name,
+            registry_root=args.registry if args.model_name else None,
+            draft_policy=args.spec_draft, **engine_kwargs)
+        model, cfg = eng.model, eng.model.cfg
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"cold start from artifact: {cfg.name} "
+              f"({time.perf_counter() - t_load:.2f}s to params-on-device)")
+    else:
+        if not args.arch:
+            p.error("--arch is required without --artifact/--model-name")
+        cfg = C.get(args.arch)
+        if args.reduced:
+            cfg = reduce_cfg(cfg)
+        if args.policy or args.budget:
+            if args.hashed or args.compression is not None:
+                p.error("--policy/--budget replace --hashed/--compression")
+            pol = (policy.load(args.policy) if args.policy
+                   else policy.CompressionPolicy())
+            if args.budget:
+                pol = dataclasses.replace(
+                    pol, budget=policy.parse_ratio(args.budget))
+            cfg = cfg.policy_variant(pol)
+        elif args.hashed:
+            cfg = cfg.hashed_variant(args.compression
+                                     if args.compression is not None
+                                     else 0.125)
+        cfg = cfg.with_(hash_path=args.hash_path)
+
+        model = build(cfg, device=args.device)
+        params = None
+        if args.ckpt_dir:
+            t0 = time.perf_counter()
+            params = load_params(model, args.ckpt_dir)
+            if params is not None:
+                print(f"loaded params from {args.ckpt_dir} "
+                      f"({time.perf_counter() - t0:.2f}s)")
+        if params is None:
+            params = model.init(0)
+        draft = None
+        if args.spec_draft:
+            from repro_torch.serving.draft import build_draft
+            _, dmodel, dparams = build_draft(cfg, params, args.spec_draft)
+            draft = (dmodel, dparams)
+        eng = Engine(model, params, draft=draft, **engine_kwargs)
     stop = tuple(tuple(int(t) for t in ids.split(","))
                  for ids in (args.stop or ()))
 
@@ -250,6 +316,12 @@ def main(argv=None) -> int:
           f"sampler dispatches: {stats['sampler_dispatches']} "
           f"({stats['sampler_time_s']:.3f}s in sampler over "
           f"{stats['ticks']} ticks)")
+    if "spec" in stats:
+        sp = stats["spec"]
+        print(f"spec decode: accept_rate={sp['accept_rate']:.3f} "
+              f"mean_accept_len={sp['mean_accept_len']:.2f} "
+              f"(k={sp['k']}, {sp['draft_dispatches']} draft / "
+              f"{sp['verify_dispatches']} verify dispatches)")
     total = sum(len(r.tokens) for r in done)
     summary = {"requests": len(done), "tokens": total,
                "wall_s": round(dt, 3), "tok_per_s": round(total / dt, 1),

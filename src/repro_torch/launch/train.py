@@ -22,10 +22,14 @@ AdamW and printed lines as the JAX package's ``launch/train.py``:
 - a heartbeat file (``--ckpt-dir``/heartbeat.json, or
   ``heartbeat_path``) per step, and ``StepTimer`` straggler flags;
 - ``--grad-compress hashed_space|int8``: compressed gradients with error
-  feedback (``train/grad_compress.py``).
+  feedback (``train/grad_compress.py``);
+- ``--artifact-dir`` (needs ``--ckpt-dir``): export a compressed
+  ``.hnart`` artifact at every committed checkpoint
+  (``checkpoint.artifact_exporter``), ``--artifact-quant int8|fp8`` its
+  bank quantization, ``--registry`` registers each export under the
+  config's name.
 
-Not ported: the mesh (ROADMAP Queue A item 12) and the artifact flags
-(item 5).
+Not ported: the mesh (ROADMAP Queue A item 12).
 """
 from __future__ import annotations
 
@@ -70,10 +74,14 @@ def run(cfg, *, steps: int, batch: int, seq: int,
         ckpt_keep: int = 3, num_microbatches: int = 1, log_every: int = 10,
         heartbeat_path: Optional[str] = None, lr: float = 3e-4,
         grad_compressor: Optional[str] = None,
+        artifact_dir: Optional[str] = None,
+        registry_root: Optional[str] = None,
         device=None) -> Dict[str, Any]:
     """Train ``cfg`` to ``steps`` steps on ``device`` (default the card),
     resuming from ``ckpt_dir``'s latest checkpoint if it has one and
-    keeping its newest ``ckpt_keep`` checkpoints.  Returns
+    keeping its newest ``ckpt_keep`` checkpoints; with ``artifact_dir``
+    each committed checkpoint also exports an artifact (registered in
+    ``registry_root`` when given).  Returns
     {"final_step", "losses" (of the steps this call ran), "step_times"
     (seconds, host clock, each ending in the loss's read),
     "straggler_count", "save_seconds" (each checkpoint's),
@@ -100,6 +108,10 @@ def run(cfg, *, steps: int, batch: int, seq: int,
             start_step = int(state["step"])
             print(f"restored checkpoint @ step {start_step}", flush=True)
 
+        export_hook = None
+        if artifact_dir:
+            export_hook = ckpt_lib.artifact_exporter(
+                cfg, artifact_dir, registry_root=registry_root)
         if heartbeat_path is None and ckpt_dir:
             heartbeat_path = os.path.join(ckpt_dir, "heartbeat.json")
         hb = ft.Heartbeat(heartbeat_path) if heartbeat_path else None
@@ -126,7 +138,8 @@ def run(cfg, *, steps: int, batch: int, seq: int,
             if ckpt_dir and ((step_i + 1) % ckpt_every == 0
                              or guard.should_stop or step_i + 1 == steps):
                 t0 = time.perf_counter()
-                ckpt_lib.save(state, ckpt_dir, step_i + 1, keep=ckpt_keep)
+                ckpt_lib.save(state, ckpt_dir, step_i + 1, keep=ckpt_keep,
+                              on_save=export_hook)
                 save_s.append(time.perf_counter() - t0)
             if guard.should_stop:
                 print("preemption: emergency checkpoint saved, "
@@ -165,8 +178,23 @@ def main(argv=None) -> int:
     p.add_argument("--grad-compress", default=None,
                    choices=["hashed_space", "int8"],
                    help="gradient compression with error feedback")
+    p.add_argument("--artifact-dir", default=None,
+                   help="export a compressed model artifact alongside "
+                        "every committed checkpoint")
+    p.add_argument("--artifact-quant", default="none",
+                   choices=["none", "int8", "fp8"],
+                   help="bank quantization for exported artifacts")
+    p.add_argument("--registry", default=None,
+                   help="model registry root; exported artifacts are "
+                        "registered under the config name")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
+    if (args.artifact_quant != "none" or args.registry) \
+            and not args.artifact_dir:
+        p.error("--artifact-quant/--registry require --artifact-dir")
+    if args.artifact_dir and not args.ckpt_dir:
+        p.error("--artifact-dir requires --ckpt-dir (artifacts are "
+                "exported at checkpoint commits)")
 
     cfg = C.get(args.arch)
     if args.reduced:
@@ -184,11 +212,15 @@ def main(argv=None) -> int:
     elif args.hashed:
         cfg = cfg.hashed_variant(args.compression
                                  if args.compression is not None else 0.125)
+    if args.artifact_quant != "none":
+        cfg = cfg.with_(artifact_quant=args.artifact_quant)
 
     out = run(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
               num_microbatches=args.microbatches, lr=args.lr,
-              grad_compressor=args.grad_compress, device=args.device)
+              grad_compressor=args.grad_compress,
+              artifact_dir=args.artifact_dir, registry_root=args.registry,
+              device=args.device)
     print(json.dumps({"final_step": out["final_step"],
                       "straggler_count": out["straggler_count"]}))
     if out["losses"]:

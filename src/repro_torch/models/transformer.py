@@ -7,15 +7,15 @@ hashed-slot inventory and policy resolution (``hash_slots``,
 ``_build_decoder`` the seeded ``init``, ``train_loss``, the dense-cache
 serving functions (``init_cache``, ``fwd_with_cache``, ``prefill``,
 ``decode_step``), ``init_paged_cache``, ``decode_paged``,
-``prefill_paged`` and ``logits_head``.  Params are the JAX package's nested dict with the same
+``decode_paged_block``, ``prefill_paged`` and ``logits_head``.  Params are the JAX package's nested dict with the same
 leaf paths and the layer-stacked ``(L, ...)`` layout, so params carried
 across with :func:`repro_torch.interop.params_from_numpy` compute the
 same function.  PyTorch runs eagerly: the layer loop is a Python loop,
 and the page pools are written in place (the JAX package threads them
 through a ``lax.scan`` and the engine donates them).
 
-Not ported yet: ``decode_paged_block`` (spec decode, ROADMAP Queue A
-item 8), MoE, image tokens and the non-decoder kinds (item 11).
+Not ported yet: MoE, image tokens and the non-decoder kinds (ROADMAP
+Queue A item 11).
 """
 from __future__ import annotations
 
@@ -34,6 +34,11 @@ from repro_torch.core.hashing import derive_seed
 from repro_torch.nn import attention as ATT
 from repro_torch.nn import ffn as FFN
 from repro_torch.nn import layers as L
+
+# decode_paged_block's sublayers whose form is chosen per call: each runs
+# once over the block's B*S rows ("fused") or once per slot at the decode
+# step's (B, 1) shape ("slot"); attention always runs once per slot
+BLOCK_SUBLAYERS = ("norm", "qkv", "qk_norm", "rope", "o", "ffn", "head")
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +389,69 @@ class Model:
                 lengths=lengths, impl=impl)
             x = self._ffn(lp, x)
         return self.logits_head(params, x)
+
+    def block_forms(self, b: int, s: int) -> Dict[str, str]:
+        """The forms of ``decode_paged_block``'s sublayers at B=``b`` rows
+        of S=``s`` slots that give each slot the bits of a decode step at
+        B=``b``.  On the CPU every sublayer runs per slot (its vectorized
+        loops split rows by size).  On the card the elementwise RoPE runs
+        fused, and a projection group (q/k/v, o, the FFN) runs fused when
+        every GEMM in it is the element-mode kernel on its gemv body at
+        both B and B*S rows (the body's per-row arithmetic does not depend
+        on M); the norms and the LM head (torch reductions and cuBLAS,
+        whose layouts may follow the row count) run per slot.  chip_smoke
+        measures each fused form against the steps on the card."""
+        forms = {name: "slot" for name in BLOCK_SUBLAYERS}
+        if self.device.type != "cuda":
+            return forms
+        from repro_torch.kernels.hashed_matmul import gemv_ok
+        forms["rope"] = "fused"
+
+        def gemv(plans):
+            return all(p.hashed is not None and p.hashed.mode == "element"
+                       and (p.hashed.exec_path or p.hash_path) == "pallas"
+                       and gemv_ok(b, "element", False)
+                       and gemv_ok(b * s, "element", False)
+                       for p in plans)
+        a, f = self.attn_plan, self.ffn_plan
+        if gemv([a.lin(n) for n in ("q", "k", "v")]):
+            forms["qkv"] = "fused"
+        if gemv([a.lin("o")]):
+            forms["o"] = "fused"
+        if gemv([f.lin(n) for n in ("in", "gate", "out")]):
+            forms["ffn"] = "fused"
+        return forms
+
+    @torch.no_grad()
+    def decode_paged_block(self, params, tokens, pages, page_table, lengths,
+                           counts, impl: str = "pallas", forms=None):
+        """Multi-token paged decode for speculative propose/verify.
+
+        tokens (B, S); slot s of row b is the token at position
+        ``lengths[b] + s``, real iff ``s < counts[b]`` (padding slots
+        write the trash page and give logits the caller ignores).  Pools
+        are written in place.  ``forms``: a dict of sublayer -> form
+        (chip_smoke measures each), by default :meth:`block_forms` (each
+        slot bitwise S successive ``decode_paged`` steps).  Returns logits
+        (B, S, padded_vocab) fp32."""
+        b, s = tokens.shape
+        if forms is None:
+            forms = self.block_forms(b, s)
+        x = self._embed(params, tokens)
+        for i in range(self.cfg.num_layers):
+            lp = _tree_index(params["layers"], i)
+            h = ATT.per_slot(forms["norm"],
+                             lambda t: L.rmsnorm_apply(lp["ln1"], t), x)
+            x = x + ATT.apply_paged_block(
+                self.attn_plan, lp["attn"], h,
+                pages=(pages["k"][i], pages["v"][i]), page_table=page_table,
+                lengths=lengths, counts=counts, forms=forms, impl=impl)
+            h = ATT.per_slot(forms["norm"],
+                             lambda t: L.rmsnorm_apply(lp["ln2"], t), x)
+            x = x + ATT.per_slot(forms["ffn"], lambda t: FFN.apply(
+                self.ffn_plan, lp["ffn"], t), h)
+        return ATT.per_slot(forms["head"],
+                            lambda t: self.logits_head(params, t), x)
 
     @torch.no_grad()
     def prefill_paged(self, params, tokens, pages, page_table, starts, counts,

@@ -11,8 +11,10 @@ repeating K/V; scores and softmax are fp32.
 PyTorch runs eagerly, so caches and pools are updated in place: the JAX
 package returns new ones (the engine donates the paged pools,
 ``serving/engine.py`` ``donate_argnums``, which XLA turns into the same
-in-place update).  Not ported yet: cross-attention and the spec-decode
-``apply_paged_block`` (ROADMAP Queue A items 11 and 8).
+in-place update).  ``apply_paged_block`` runs a speculative verify or
+draft block: its sublayers either once over the block's rows or once per
+slot at the decode step's shape (``per_slot``).  Not ported yet:
+cross-attention (ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
@@ -225,6 +227,88 @@ def apply_paged(plan: AttentionPlan, params, x: torch.Tensor, *, pages,
              plan.sliding_window)
     out = out.reshape(b, 1, plan.q_dim).to(plan.dtype)
     return L.linear_apply(plan.lin("o"), params["o"], out)
+
+
+def per_slot(form: str, fn, *xs):
+    """``fn`` over (B, S, ...) inputs: once over all S slots (``form``
+    "fused"), or once per slot on contiguous (B, 1, ...) slices, the
+    outputs concatenated along dim 1 ("slot").  The slot form hands each
+    call the decode step's own shapes, so a sublayer whose bits depend on
+    its row count (a reduction's layout, a GEMM body picked by M) gives
+    the bits of a decode step."""
+    s_blk = xs[0].shape[1]
+    if form == "fused" or s_blk == 1:
+        return fn(*xs)
+    if form != "slot":
+        raise ValueError(f"block form {form!r} not in ('fused', 'slot')")
+    return torch.cat([fn(*(x[:, s:s + 1].contiguous() for x in xs))
+                      for s in range(s_blk)], dim=1)
+
+
+def apply_paged_block(plan: AttentionPlan, params, x: torch.Tensor, *,
+                      pages, page_table: torch.Tensor,
+                      lengths: torch.Tensor, counts: torch.Tensor,
+                      forms: dict, impl: str = "pallas") -> torch.Tensor:
+    """Multi-token decode block (speculative propose/verify) through a
+    paged KV cache.
+
+    x: (B, S, d_model); slot ``s`` of row ``b`` holds the token at
+    position ``lengths[b] + s`` and is real iff ``s < counts[b]``.  Real
+    slots write K/V into the row's pages (slot s attends to the slots
+    before it, written in the same call); padding slots write the trash
+    page (0), whose contents are never read back.  Attention runs once
+    per slot (one paged-decode launch each, at the step's lengths);
+    ``forms`` picks, for "qkv" (the q/k/v projections), "qk_norm",
+    "rope" and "o" (the output projection), the fused form or one call
+    per slot (:func:`per_slot`).  With every form giving the step's bits
+    a slot is bitwise the decode step at its position, the parity the
+    speculative engine's token identity rests on.  Returns (B, S,
+    d_model)."""
+    _check_impl(impl)
+    b, s_blk, _ = x.shape
+    lengths = lengths.long()
+    offs = torch.arange(s_blk, dtype=torch.int64, device=x.device)[None, :]
+    positions = lengths[:, None] + offs               # (B, S)
+
+    def proj(name, heads):
+        return per_slot(forms["qkv"],
+                        lambda t: _project(plan, params, name, t, heads), x)
+    q = proj("q", plan.num_heads)
+    k = proj("k", plan.num_kv_heads)
+    v = proj("v", plan.num_kv_heads)
+    if plan.qk_norm:
+        q = per_slot(forms["qk_norm"],
+                     lambda t: L.rmsnorm_apply(params["q_norm"], t), q)
+        k = per_slot(forms["qk_norm"],
+                     lambda t: L.rmsnorm_apply(params["k_norm"], t), k)
+    q = per_slot(forms["rope"],
+                 lambda t, p: L.rope(t, p, plan.rope_theta), q, positions)
+    k = per_slot(forms["rope"],
+                 lambda t, p: L.rope(t, p, plan.rope_theta), k, positions)
+
+    pk, pv = pages
+    ps = pk.shape[1]
+    maxp = page_table.shape[1]
+    valid = offs < counts.long()[:, None]              # (B, S)
+    # clamp the page slot for padding positions that run past the table;
+    # their writes are redirected to the trash page anyway
+    pno = torch.clamp(positions // ps, max=maxp - 1)
+    pidx = torch.where(valid, torch.gather(page_table.long(), 1, pno), 0)
+    poff = positions % ps
+    pk[pidx.reshape(-1), poff.reshape(-1)] = \
+        k.reshape(b * s_blk, *k.shape[2:]).to(pk.dtype)
+    pv[pidx.reshape(-1), poff.reshape(-1)] = \
+        v.reshape(b * s_blk, *v.shape[2:]).to(pv.dtype)
+    fn = PA.paged_decode_attention if impl == "pallas" \
+        else PA.paged_attention_ref
+    outs = [fn(q[:, s], pk, pv, page_table,
+               torch.clamp(lengths + s + 1, max=maxp * ps).int(),
+               plan.sliding_window)
+            for s in range(s_blk)]
+    out = torch.stack(outs, dim=1).reshape(b, s_blk, plan.q_dim) \
+        .to(plan.dtype)
+    return per_slot(forms["o"], lambda t: L.linear_apply(
+        plan.lin("o"), params["o"], t), out)
 
 
 def apply_paged_prefill(plan: AttentionPlan, params, x: torch.Tensor, *,

@@ -35,12 +35,20 @@ The JAX package shares one zero scratch cache among all rows because it
 never mutates it; here a row takes a scratch of its own at its first
 chunk and drops it on completion or preemption.
 
+- **Speculative decoding** (``draft=(model, params)``, usually from
+  ``serving.draft.build_draft``): the draft proposes ``spec_k`` tokens a
+  tick and the base model verifies them in one block
+  (``serving.spec_decode``); emitted tokens equal the non-speculative
+  engine's.
+- **Cold start** from a compressed artifact (``Engine.from_artifact``: a
+  ``.hnart`` path, or ``name[@version]`` in a registry).
+
 Not ported yet, each raising ``NotImplementedError``: the dense-cache
 backend of the non-decoder kinds and image or encoder content in
 ``extras`` (ROADMAP Queue A item 11; a decoder row with extras is
-prefilled unbucketed and the extras are not read), speculative decoding
-(item 8), tensor-parallel serving (item 12), artifact cold start (item
-5), and the multi-model hosting knobs of the front door (item 10).
+prefilled unbucketed and the extras are not read), tensor-parallel
+serving (item 12), and the multi-model hosting knobs of the front door
+(item 10).
 """
 from __future__ import annotations
 
@@ -184,7 +192,8 @@ class Engine:
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  debug_leak_check: bool = False,
-                 draft=None, mesh=None):
+                 draft=None, spec_k: int = 4, spec_adaptive: bool = False,
+                 mesh=None):
         """max_concurrency (alias: slots) fixes the decode batch width.
 
         ``device``: where the engine runs (default: the card; raises when
@@ -202,13 +211,17 @@ class Engine:
         per-token top-K logprob report; ``seed`` seeds the stream that
         assigns sampling seeds to requests that did not pin one.
         ``metrics``/``tracer``/``debug_leak_check`` as in the JAX engine.
+        ``draft``: an optional ``(model, params)`` pair (typically from
+        ``serving.draft.build_draft``) switching on self-speculative
+        decoding: ``spec_k`` proposals a tick, verified in one block;
+        ``spec_adaptive`` varies the depth within [1, spec_k] from an
+        accept-rate EWMA.  Emitted tokens equal the non-speculative
+        engine's.
         """
         dev = resolve_device(device)
         if dev.type != torch.device(model.device).type:
             raise ValueError(f"engine device {dev} is not the model's "
                              f"({model.device})")
-        if draft is not None:
-            raise _not_ported("speculative decoding", 8)
         if mesh is not None:
             raise _not_ported("tensor-parallel serving", 12)
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -272,10 +285,46 @@ class Engine:
         self._g_pages_free = self.metrics.gauge("kv.pages_free")
         # written in place by decode, prefill and the COW copy
         self.pages = model.init_paged_cache(num_pages, page_size)
+        self.spec = None
+        if draft is not None:
+            from repro_torch.serving.spec_decode import SpecDecoder
+            self.spec = SpecDecoder(self, draft[0], draft[1], k=spec_k,
+                                    attn_impl=attn_impl,
+                                    adaptive=spec_adaptive)
 
     @classmethod
-    def from_artifact(cls, *args, **kwargs) -> "Engine":
-        raise _not_ported("artifact cold start", 5)
+    def from_artifact(cls, path_or_name: str, *,
+                      registry_root: Optional[str] = None,
+                      slots: int = 4, max_len: int = 512, eos_id: int = 1,
+                      seed: int = 0, draft_policy=None, device=None,
+                      **kwargs) -> "Engine":
+        """Cold-start an engine from a compressed model artifact.
+
+        path_or_name: a ``.hnart`` file path, or (with ``registry_root``)
+        a registered model name, optionally ``name@version`` (the file's
+        sha256 is checked).  The artifact carries the config, hash seeds
+        and banks (``repro_torch.artifact``); quantized banks are
+        dequantized at load.  The params land on ``device`` (default the
+        card) in one copy from the file's map.  ``draft_policy`` (a
+        ``CompressionPolicy``, policy-JSON path or ratio string such as
+        "1/16") switches on self-speculative decoding with the draft
+        derived off the same loaded params (``serving.draft``); other
+        kwargs (``spec_k``, ``page_size``, ``prefix_cache``, ...) pass to
+        the Engine."""
+        from repro_torch.artifact import io as artifact_io
+        if registry_root is not None:
+            from repro_torch.artifact import registry as artifact_registry
+            entry = artifact_registry.resolve(registry_root, path_or_name)
+            path_or_name = entry["path"]
+        _, model, params = artifact_io.load_model(path_or_name,
+                                                  device=device)
+        if draft_policy is not None:
+            from repro_torch.serving import draft as draft_lib
+            _, dmodel, dparams = draft_lib.build_draft(
+                model.cfg, params, draft_policy)
+            kwargs["draft"] = (dmodel, dparams)
+        return cls(model, params, slots=slots, max_len=max_len,
+                   eos_id=eos_id, seed=seed, device=model.device, **kwargs)
 
     # ------------------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -661,6 +710,8 @@ class Engine:
         self._prefilling.pop(row, None)
         self.rows[row] = None
         self.kv.release_row(row)
+        if self.spec is not None:
+            self.spec.release_row(row)
         self._sampler_state.clear(row)
         req.status = "preempted"
         req.preemptions += 1
@@ -677,6 +728,8 @@ class Engine:
         self._publish_row(row)
         self.rows[row] = None
         self.kv.release_row(row)
+        if self.spec is not None:
+            self.spec.release_row(row)
         self._sampler_state.clear(row)
         req.done = True
         req.truncated = truncated
@@ -771,6 +824,25 @@ class Engine:
             return 0
         t_dec = time.perf_counter()
         dec_tr0 = self.tracer.now()
+        if self.spec is not None:
+            # speculative tick: draft-propose + block-verify commit
+            # 1..spec_k+1 tokens a row, the tokens the path below would
+            # have emitted
+            self.spec.tick(active)
+        else:
+            self._decode_tick(active)
+        self._h_tick.observe(time.perf_counter() - t_dec)
+        if self.tracer.enabled:
+            for i in active:
+                self.tracer.complete(REQUEST_PID, self.rows[i].uid,
+                                     "decode_tick", dec_tr0,
+                                     token=int(self._tokens[i, 0]))
+        self._retire()
+        self.sched.account(chunks, len(active))
+        return len(active)
+
+    def _decode_tick(self, active: List[int]) -> None:
+        """One decode step over the batch and one fused sampler call."""
         table, lengths = self.kv.table, self.kv.lengths
         if self._prefilling:
             # rows mid-prefill must neither write their real pages nor
@@ -792,15 +864,6 @@ class Engine:
         for i in active:
             self.kv.advance(i)
             self._commit_token(i, self.rows[i], res, i)
-        self._h_tick.observe(time.perf_counter() - t_dec)
-        if self.tracer.enabled:
-            for i in active:
-                self.tracer.complete(REQUEST_PID, self.rows[i].uid,
-                                     "decode_tick", dec_tr0,
-                                     token=int(self._tokens[i, 0]))
-        self._retire()
-        self.sched.account(chunks, len(active))
-        return len(active)
 
     def _stop_reason(self, r: Request) -> Optional[str]:
         if r.tokens and (r.tokens[-1] == self.eos_id
@@ -861,6 +924,8 @@ class Engine:
         if self.debug_leak_check:
             try:
                 self.kv.leak_check()
+                if self.spec is not None:
+                    self.spec.leak_check()   # the draft pool audits too
             except AssertionError as e:
                 self._leak_anomalies.inc()
                 self.last_leak_error = str(e)
@@ -890,6 +955,8 @@ class Engine:
         out["pages_in_use"] = self.kv.alloc.num_used
         out["pages_free"] = self.kv.alloc.num_free
         out.update(self.kv.prefix_stats())
+        if self.spec is not None:
+            out["spec"] = self.spec.stats()
         return out
 
 

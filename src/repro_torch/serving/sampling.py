@@ -23,8 +23,10 @@ tensor.  The stages, in order:
 
 ``SamplerState`` (host-side per-row knob mirror) and ``FusedSampler``
 (dispatch surface + ``sampler.*`` metrics) keep the JAX package's
-behaviour and metric names.  The speculative-verify surface
-(``run_block``) comes with spec decode (ROADMAP Queue A item 8).
+behaviour and metric names.  ``FusedSampler.run_block`` is the
+speculative-verify surface: one call over a (rows, k+1) block of logits,
+every slot with the state the baseline would hold there, and
+``accept_counts`` the deterministic acceptance rule.
 """
 from __future__ import annotations
 
@@ -230,18 +232,26 @@ class SamplerState:
             self.seen[row, tok] = True
             self.out_seen[row, tok] = True
 
+    def arrays(self, sl: slice = slice(None), *,
+               with_masks: bool = True) -> Dict[str, np.ndarray]:
+        """The rows ``sl`` of every per-row knob, as host arrays."""
+        out = {"temperature": self.temperature[sl], "top_k": self.top_k[sl],
+               "top_p": self.top_p[sl], "min_p": self.min_p[sl],
+               "rep_pen": self.rep_pen[sl], "pres_pen": self.pres_pen[sl],
+               "seed": self.seed[sl], "pos": self.pos[sl]}
+        if with_masks:
+            out["seen"] = self.seen[sl]
+            out["out_seen"] = self.out_seen[sl]
+        return out
+
     def batch(self, sl: slice = slice(None), *, with_masks: bool = True,
               device="cpu") -> Dict[str, torch.Tensor]:
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a[sl])).to(device)
-        out = {"temperature": t(self.temperature), "top_k": t(self.top_k),
-               "top_p": t(self.top_p), "min_p": t(self.min_p),
-               "rep_pen": t(self.rep_pen), "pres_pen": t(self.pres_pen),
-               "seed": t(self.seed), "pos": t(self.pos)}
-        if with_masks:
-            out["seen"] = t(self.seen)
-            out["out_seen"] = t(self.out_seen)
-        return out
+        return to_device(self.arrays(sl, with_masks=with_masks), device)
+
+
+def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for k, a in arrays.items()}
 
 
 class FusedSampler:
@@ -294,6 +304,77 @@ class FusedSampler:
         if self.tracer.enabled:
             self.tracer.complete(ENGINE_PID, 0, f"sampler:{kind}", tr0)
         return res
+
+
+    def run_block(self, logits: torch.Tensor, sl: slice,
+                  proposals: np.ndarray,
+                  kind: str = "verify") -> Dict[str, np.ndarray]:
+        """One fused call over an (R, S, V) block of logits: the
+        speculative-verify surface.
+
+        Slot ``s`` of row ``r`` is the token the engine WOULD commit at
+        generated index ``pos[r] + s`` if ``proposals[r, :s]`` were the
+        previous ``s`` commits: its state is what ``SamplerState`` would
+        hold after ``s`` ``note`` calls (pos advanced by ``s``,
+        seen/out_seen OR'd with the proposals), so every slot reproduces
+        the baseline per-tick call: the same (seed, pos) Threefry stream,
+        the same penalty masks and specialization flags.  Returns flat
+        (R*S,) results (slot ``r*S + s``), as ``run`` returns them for a
+        batch of R*S rows."""
+        logits = logits.float()
+        if logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        t0 = time.perf_counter()
+        tr0 = self.tracer.now()
+        st = self.state
+        r, s_blk, vocab = logits.shape
+        proposals = np.asarray(proposals, np.int64).reshape(r, s_blk - 1)
+        masks = bool(st.uses_penalties[sl].any())
+        k = self.logprob_k if st.wants_logprobs[sl].any() else 0
+        samp = bool(st.is_sampled[sl].any())
+        trunc = samp and bool(st.uses_truncation[sl].any())
+
+        exp = {key: np.repeat(v, s_blk, axis=0)
+               for key, v in st.arrays(sl, with_masks=False).items()}
+        exp["pos"] = (st.pos[sl][:, None]
+                      + np.arange(s_blk, dtype=np.int64)).reshape(-1)
+        if masks:
+            seen = np.repeat(st.seen[sl], s_blk, axis=0)
+            out_seen = np.repeat(st.out_seen[sl], s_blk, axis=0)
+            cum = np.zeros((r, vocab), bool)      # proposals committed < s
+            rows = np.arange(r)
+            for s in range(1, s_blk):
+                t = proposals[:, s - 1]
+                ok = (t >= 0) & (t < vocab)
+                cum[rows[ok], t[ok]] = True
+                seen[s::s_blk] |= cum
+                out_seen[s::s_blk] |= cum
+            exp["seen"], exp["out_seen"] = seen, out_seen
+        out = sample_tokens(
+            logits.reshape(r * s_blk, vocab), to_device(exp, logits.device),
+            logprob_k=k, with_sampling=samp, with_truncation=trunc)
+        res = {k2: v.cpu().numpy() for k2, v in out.items()}
+        self._h_dispatch.observe(time.perf_counter() - t0)
+        self.dispatches[kind] += 1
+        if self.tracer.enabled:
+            self.tracer.complete(ENGINE_PID, 0, f"sampler:{kind}", tr0)
+        return res
+
+
+def accept_counts(targets: np.ndarray, proposals: np.ndarray,
+                  limits: np.ndarray) -> np.ndarray:
+    """Commits per row of a verified block.
+
+    targets (R, S): the tokens the base model commits at each slot (slot
+    s valid if proposals[:s] matched); proposals (R, S-1): the draft's k
+    proposals; limits (R,): the verify slots a row may use (room,
+    max_tokens).  A row commits targets[0..c-1], c = 1 + the length of
+    the leading proposal prefix that matches the targets, clamped to the
+    row's limit: exact for greedy and seeded sampling, because the
+    targets ARE the baseline's (seed, pos)-keyed draws."""
+    match = (targets[:, :-1] == proposals).astype(np.int64)
+    run = np.cumprod(match, axis=1).sum(axis=1)
+    return np.minimum(1 + run, np.asarray(limits, np.int64)).astype(np.int64)
 
 
 def match_stop(tokens: List[int], stop) -> bool:

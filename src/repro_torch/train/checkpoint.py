@@ -29,7 +29,7 @@ import os
 import re
 import shutil
 import time
-from typing import List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,8 +89,15 @@ def _load_leaf(path: str, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(state, directory: str, step: int, keep: int = 3) -> str:
-    """Write one atomic checkpoint; returns its path."""
+def save(state, directory: str, step: int, keep: int = 3,
+         on_save: Optional[Callable[[str, Any, int], None]] = None) -> str:
+    """Write one atomic checkpoint; returns its path.
+
+    on_save: optional hook called after the commit marker lands with
+    ``(final_path, state, step)``: the artifact exporter rides here, so
+    every committed checkpoint can also mint a deployable compressed
+    artifact.  Hook errors are raised, not swallowed: a failed export
+    fails before the GC can reap the checkpoint it shadowed."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -108,8 +115,45 @@ def save(state, directory: str, step: int, keep: int = 3) -> str:
     os.replace(tmp, final)                      # atomic rename
     with open(final + ".done", "w") as f:      # commit marker
         f.write(str(step))
+    if on_save is not None:
+        on_save(final, state, int(step))
     _gc(directory, keep)
     return final
+
+
+def artifact_exporter(cfg, artifact_dir: str,
+                      registry_root: Optional[str] = None,
+                      model_name: Optional[str] = None,
+                      keep: int = 3):
+    """An ``on_save`` hook that exports ``state["params"]`` as a compressed
+    artifact (``artifact_dir/model_<step>.hnart``) at each committed
+    checkpoint, and with ``registry_root`` registers it as the next
+    version of ``model_name`` (default the config's name), the policy in
+    the registry metadata.
+
+    keep: only the newest ``keep`` exports stay in artifact_dir; the
+    registry's copies are immutable and never pruned."""
+    from repro_torch import artifact as art
+
+    def hook(final_path: str, state, step: int) -> None:
+        path = os.path.join(artifact_dir, f"model_{step:08d}.hnart")
+        art.export_model(path, cfg, state["params"],
+                         meta={"step": step, "checkpoint": final_path})
+        if registry_root:
+            from repro_torch import policy as pol
+            from repro_torch.artifact import registry as reg
+            meta = {"step": step}
+            if getattr(cfg, "hash_policy", None) is not None:
+                meta["hash_policy"] = pol.policy_to_dict(cfg.hash_policy)
+            reg.register(registry_root, model_name or cfg.name, path,
+                         metadata=meta)
+        if keep > 0:
+            old = sorted(f for f in os.listdir(artifact_dir)
+                         if f.startswith("model_")
+                         and f.endswith(".hnart"))[:-keep]
+            for f in old:
+                os.remove(os.path.join(artifact_dir, f))
+    return hook
 
 
 def _gc(directory: str, keep: int) -> None:

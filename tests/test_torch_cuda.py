@@ -760,3 +760,79 @@ def test_cuda_train_step_matches_cpu_plain_path(cuda_device, mode):
         assert err <= 1e-4 * max(1.0, scale)
     assert all(gpu[3][k]["launches"] > 0 for k in kernels)
     assert all(c["plain_cuda_calls"] == 0 for c in gpu[3].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(4, 3), (2, 7), (4, 5)])
+def test_cuda_verify_block_logits_bitwise_decode_steps(cuda_device, b, k):
+    """On a small bf16 model on the card (head_dim 64: the attention
+    kernels compile 64/128/256), the verify block's logits (B rows of k+1
+    slots, the default forms) are bitwise k+1 successive decode steps',
+    and so are the K/V it writes.  At B*(k+1) <= 16 the projections run
+    fused on the gemv body; above, per slot."""
+    import repro_torch.configs as C
+    from repro_torch import kernels as K
+    from repro_torch.models import build
+
+    cfg = C.reduced(C.get("qwen3-1.7b")).hashed_variant(0.125).with_(
+        head_dim=64, hash_panel_cols=32)
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(5)
+    ps, maxp = 8, 8
+    pages = model.init_paged_cache(b * maxp + 1, ps)
+    table = torch.arange(1, b * maxp + 1, dtype=torch.int32,
+                         device="cuda").reshape(b, maxp)
+    lens = rng.integers(3, 30, b)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                         (b, int(lens.max())))).cuda()
+    lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+    zeros = torch.zeros(b, dtype=torch.int32, device="cuda")
+    model.prefill_paged(params, toks, pages, table, zeros, lengths, zeros)
+    s_blk = k + 1
+    blk = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                        (b, s_blk))).cuda()
+    counts = torch.full((b,), s_blk, dtype=torch.int32, device="cuda")
+    pages_b = {n: v.clone() for n, v in pages.items()}
+    forms = model.block_forms(b, s_blk)
+    assert forms["norm"] == forms["head"] == "slot"
+    assert (forms["qkv"] == "fused") == (b * s_blk <= 16)
+    K.reset_counts()
+    got = model.decode_paged_block(params, blk, pages_b, table, lengths,
+                                   counts)
+    assert K.counts()["paged_decode"]["launches"] == \
+        cfg.num_layers * s_blk
+    for s in range(s_blk):
+        step = model.decode_paged(params, blk[:, s:s + 1], pages, table,
+                                  lengths + s)
+        assert torch.equal(got[:, s], step[:, 0]), s
+    for n in ("k", "v"):
+        assert torch.equal(pages_b[n], pages[n])
+    assert all(c["plain_cuda_calls"] == 0 for c in K.counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_cuda_artifact_loads_saved_bits(cuda_device, tmp_path, quant):
+    """An artifact exported from the card and loaded back onto it holds the
+    saved bits (bf16 leaves included); an int8 one holds the host
+    dequantization's bits."""
+    import repro_torch.configs as C
+    from repro_torch import artifact
+    from repro_torch.artifact import format as F
+    from repro_torch.models import build
+
+    cfg = C.reduced(C.get("qwen3-1.7b")).hashed_variant(0.125)
+    params = build(cfg, device="cuda").init(0)
+    path = str(tmp_path / "m.hnart")
+    artifact.export_model(path, cfg, params, quant=quant,
+                          quant_min_size=256)
+    _, _, loaded = artifact.load_model(path, device="cuda")
+    _, host = artifact.load(path, device="cpu")
+    for (p, a), (_, b), (_, h) in zip(F.flatten_with_paths(params),
+                                      F.flatten_with_paths(loaded),
+                                      F.flatten_with_paths(host)):
+        assert b.is_cuda and b.dtype == a.dtype, p
+        assert torch.equal(b.cpu(), h), p
+        if quant == "none":
+            assert torch.equal(a, b), p

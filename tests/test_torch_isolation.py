@@ -1,15 +1,21 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
-- In a subprocess with ``sys.modules["jax"] = None`` (so any JAX import
+- In a subprocess with ``sys.modules["jax"]`` and
+  ``sys.modules["ml_dtypes"]`` set to None (so any import of either
   fails), import ``repro_torch``, serve two requests on the CPU, then a
   greedy and a seeded sampled request with ``batched_prefill=False``, train
   two steps through ``launch.train`` (with a checkpoint and gradient
   compression), run the hashed GEMM's forward and backward wrappers in
   both modes, import the paper's MLPs, their data and the trainer's
   checkpoint, fault-tolerance and compression modules and fit a small
-  hashed MLP, and check that nothing of ``repro`` was imported.
+  hashed MLP, export a bf16 model as an int8 and an fp8 ``.hnart``
+  artifact, register it and cold-start a speculative engine from the
+  registry with a 1/16 draft (its tokens equal the non-speculative
+  engine's), list the registry through ``registry_cli``, and check that
+  nothing of ``repro`` was imported.
 - An AST scan of ``src/repro_torch/**``, ``chip_smoke.py`` and
-  ``gemm_timing.py``: no JAX import and no import of the JAX package.
+  ``gemm_timing.py``: no JAX import, no ``ml_dtypes`` (the card's machine
+  has none) and no import of the JAX package.
 - Without a CUDA device, the entry points raise unless asked for the CPU.
 """
 import ast
@@ -27,6 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _CHILD = r"""
 import sys
 sys.modules["jax"] = None            # any JAX import now fails
+sys.modules["ml_dtypes"] = None      # nor may ml_dtypes be imported
 import numpy as np
 import repro_torch
 import repro_torch.configs as C
@@ -75,9 +82,32 @@ for spec in (HashedSpec((32, 64), 0.25, panel_cols=32),
     x = torch.ones(3, 5, 32, requires_grad=True)
     ops.hashed_matmul(x, w, spec).sum().backward()
     assert w.grad.shape == w.shape and x.grad.shape == x.shape
+from repro_torch import artifact
+from repro_torch.artifact import registry
+from repro_torch.launch import registry_cli
+from repro_torch.serving import draft, spec_decode  # noqa: F401
+cfg = C.reduced(C.get("qwen3-1.7b")).hashed_variant(0.125)
+params = build(cfg, device="cpu").init(0)
+with tempfile.TemporaryDirectory() as d:
+    for q in ("int8", "fp8"):
+        artifact.export_model(d + "/m.hnart", cfg, params, quant=q)
+        _, loaded = artifact.load(d + "/m.hnart", device="cpu")
+    artifact.export_model(d + "/m.hnart", cfg, params)
+    registry.register(d + "/reg", "toy", d + "/m.hnart")
+    toks = []
+    for pol in (None, "1/16"):
+        eng = Engine.from_artifact("toy", registry_root=d + "/reg",
+                                   device="cpu", max_len=32, eos_id=-1,
+                                   draft_policy=pol, spec_k=2)
+        assert eng.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32)
+                                  + 2, max_new_tokens=4))
+        toks.append([r.tokens for r in eng.run()])
+    assert toks[0] == toks[1], toks
+    assert registry_cli.main(["--registry", d + "/reg", "verify"]) == 0
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.") or m == "jax"
-                  or m.startswith("jax.") or m.startswith("jaxlib")))
+                  or m.startswith("jax.") or m.startswith("jaxlib")
+                  or m == "ml_dtypes"))
 print("LEAKED", bad)
 """
 
@@ -118,7 +148,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+            if top in ("jax", "jaxlib", "repro", "flax", "optax",
+                       "ml_dtypes"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert bad == []
 
