@@ -268,11 +268,16 @@ class Model:
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "index": 0}
 
+    def paged_cache_shape(self, num_pages: int, page_size: int):
+        """(shape, dtype) of each of the page pool's "k" and "v" tensors,
+        without allocating them: (nl, P, page_size, n_kv, hd)."""
+        return ((self.cfg.num_layers, num_pages, page_size,
+                 self.cfg.num_kv_heads, self.cfg.head_dim), self.dtype)
+
     def init_paged_cache(self, num_pages: int, page_size: int):
-        shape = (self.cfg.num_layers, num_pages, page_size,
-                 self.cfg.num_kv_heads, self.cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        shape, dtype = self.paged_cache_shape(num_pages, page_size)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
 
     # -- serving dispatches --------------------------------------------------
     def _embed(self, params, tokens):

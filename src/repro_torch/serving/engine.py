@@ -42,16 +42,25 @@ chunk and drops it on completion or preemption.
   engine's.
 - **Cold start** from a compressed artifact (``Engine.from_artifact``: a
   ``.hnart`` path, or ``name[@version]`` in a registry).
+- **Multi-tenant hosting** (``serving.multi_model``): ``model_tag`` names
+  the engine's tenant lane on a shared ``Scheduler``; ``page_allocator``
+  and ``shared_pages`` bind it to a page allocator and a page pool that
+  other engines share (it allocates no pool of its own); ``page_quota``
+  caps the distinct pages it may hold.
+
+A tick (``step``) runs without autograd and on the stream that was
+current on the engine's device when the engine was built, whichever
+thread calls it (the HTTP front end ticks from an executor thread).
 
 Not ported yet, each raising ``NotImplementedError``: the dense-cache
 backend of the non-decoder kinds and image or encoder content in
 ``extras`` (ROADMAP Queue A item 11; a decoder row with extras is
-prefilled unbucketed and the extras are not read), tensor-parallel
-serving (item 12), and the multi-model hosting knobs of the front door
-(item 10).
+prefilled unbucketed and the extras are not read) and tensor-parallel
+serving (item 12).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -69,7 +78,8 @@ from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_DEADLINE,
                                      FINISH_LENGTH, FINISH_REASONS,
                                      FINISH_STOP, RequestHandle,
                                      SamplingParams)
-from repro_torch.serving.paged_cache import TRASH_PAGE, PagedKVCache
+from repro_torch.serving.paged_cache import (TRASH_PAGE, PageAllocator,
+                                             PagedKVCache)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
 # every duration and deadline comes off the monotonic clock; wall time
@@ -85,6 +95,7 @@ class Request:
     max_new_tokens: int = 32            # legacy mirror of sampling.max_tokens
     temperature: float = 0.0            # legacy mirror of sampling.temperature
     priority: int = 0                   # lower = more urgent
+    model: Optional[str] = None         # tenant tag (multi-model engine)
     sampling: Optional[SamplingParams] = None
     # filled by the engine
     tokens: Optional[List[int]] = None
@@ -193,7 +204,11 @@ class Engine:
                  tracer: Optional[Tracer] = None,
                  debug_leak_check: bool = False,
                  draft=None, spec_k: int = 4, spec_adaptive: bool = False,
-                 mesh=None):
+                 mesh=None,
+                 model_tag: Optional[str] = None,
+                 page_allocator: Optional[PageAllocator] = None,
+                 shared_pages: Optional[Dict[str, torch.Tensor]] = None,
+                 page_quota: Optional[int] = None):
         """max_concurrency (alias: slots) fixes the decode batch width.
 
         ``device``: where the engine runs (default: the card; raises when
@@ -217,6 +232,13 @@ class Engine:
         ``spec_adaptive`` varies the depth within [1, spec_k] from an
         accept-rate EWMA.  Emitted tokens equal the non-speculative
         engine's.
+
+        Multi-tenant hosting (``serving.multi_model``): ``model_tag``
+        names this engine's tenant lane on a shared ``scheduler`` (a live
+        ``Scheduler``, not just a config); ``page_allocator`` /
+        ``shared_pages`` bind it to a shared allocator and page pool
+        (``shared_pages`` is used as given: no pool is allocated);
+        ``page_quota`` caps its distinct-page footprint on that pool.
         """
         dev = resolve_device(device)
         if dev.type != torch.device(model.device).type:
@@ -241,8 +263,12 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         # off: every row prefills alone through its scratch cache
         self.batched_prefill = bool(batched_prefill)
-        self.sched = Scheduler(scheduler or SchedulerConfig(),
-                               metrics=self.metrics)
+        self.model_tag = model_tag
+        if isinstance(scheduler, Scheduler):
+            self.sched = scheduler       # shared across hosted models
+        else:
+            self.sched = Scheduler(scheduler or SchedulerConfig(),
+                                   metrics=self.metrics)
         self.rows: List[Optional[Request]] = [None] * rows
         self._row_seq = [0] * rows      # admission order, for preemption
         self._seq = 0
@@ -280,11 +306,31 @@ class Engine:
             num_pages = rows * maxp + 1          # +1: trash page
         self.kv = PagedKVCache(num_pages, page_size, rows, maxp,
                                prefix_cache=prefix_cache,
-                               metrics=self.metrics)
+                               metrics=self.metrics,
+                               alloc=page_allocator,
+                               page_quota=page_quota)
         self._g_pages_used = self.metrics.gauge("kv.pages_in_use")
         self._g_pages_free = self.metrics.gauge("kv.pages_free")
+        self._g_pages_held = self.metrics.gauge("kv.pages_held") \
+            if (page_allocator is not None or page_quota is not None) \
+            else None
         # written in place by decode, prefill and the COW copy
-        self.pages = model.init_paged_cache(num_pages, page_size)
+        if shared_pages is not None:
+            shape, dtype = model.paged_cache_shape(num_pages, page_size)
+            for name in ("k", "v"):
+                t = shared_pages[name]
+                if tuple(t.shape) != shape or t.dtype != dtype \
+                        or t.device.type != dev.type:
+                    raise ValueError(
+                        f"shared_pages[{name!r}] is {tuple(t.shape)} "
+                        f"{t.dtype} on {t.device}; this engine needs "
+                        f"{shape} {dtype} on {dev}")
+            self.pages = shared_pages
+        else:
+            self.pages = model.init_paged_cache(num_pages, page_size)
+        # the stream every tick launches on, whichever thread ticks
+        self._stream = torch.cuda.current_stream(dev) \
+            if dev.type == "cuda" else None
         self.spec = None
         if draft is not None:
             from repro_torch.serving.spec_decode import SpecDecoder
@@ -341,6 +387,8 @@ class Engine:
         request could never fit the page pool)."""
         if req.tokens is None:
             req.tokens = []
+        if self.model_tag is not None:
+            req.model = self.model_tag   # tenant lane on a shared sched
         sp = req.sampling
         if sp.logprobs is not None and sp.logprobs > self._logprob_k:
             raise ValueError(
@@ -413,7 +461,8 @@ class Engine:
             free = self._free_rows()
             if not free:
                 break
-            req = self.sched.pop_admissible(self._can_admit)
+            req = self.sched.pop_admissible(self._can_admit,
+                                            model=self.model_tag)
             if req is None:
                 break
             if not self._begin_prefill(free[0], req, now):
@@ -785,9 +834,17 @@ class Engine:
         running rows, retire.  Returns the number of rows decoded."""
         self._counts["ticks"] += 1
         tick_tr0 = self.tracer.now()
-        decoded = self._step_inner()
+        # grad mode and the current stream are per thread: pin both, so a
+        # tick on an executor thread computes what one on the main thread
+        # does, with no autograd graph
+        stream = torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+        with torch.no_grad(), stream:
+            decoded = self._step_inner()
         self._g_pages_used.set(self.kv.alloc.num_used)
         self._g_pages_free.set(self.kv.alloc.num_free)
+        if self._g_pages_held is not None:
+            self._g_pages_held.set(self.kv.pages_held())
         if self.tracer.enabled:
             self.tracer.complete(ENGINE_PID, 0, "tick", tick_tr0,
                                  decoded=decoded)
@@ -795,7 +852,7 @@ class Engine:
 
     def _step_inner(self) -> int:
         now = _now_mono()
-        for r in self.sched.expire(now):
+        for r in self.sched.expire(now, model=self.model_tag):
             r.status = "expired"
             r.finish_mono = now
             r.finish_time = _now_wall()
@@ -884,17 +941,23 @@ class Engine:
 
     def pending(self) -> bool:
         """True while the engine has work: queued requests or occupied
-        rows."""
-        return bool(len(self.sched) or any(r is not None for r in self.rows))
+        rows.  On a shared scheduler only this engine's tenant lane
+        counts."""
+        if self.model_tag is not None:
+            depth = self.sched.depth_by_model().get(self.model_tag, 0)
+        else:
+            depth = len(self.sched)
+        return bool(depth or any(r is not None for r in self.rows))
 
     def cancel_queued(self) -> List[Request]:
         """Graceful-drain entry: remove every still-queued request and mark
         it terminal with ``finish_reason="cancelled"`` (a streaming client
-        sees a terminal delta).  In-flight rows are untouched: keep
-        ticking until ``pending()`` clears to let them finish."""
+        sees a terminal delta); on a shared scheduler only this engine's
+        tenant lane.  In-flight rows are untouched: keep ticking until
+        ``pending()`` clears to let them finish."""
         now = _now_mono()
         out: List[Request] = []
-        for r in self.sched.drain():
+        for r in self.sched.drain(model=self.model_tag):
             r.status = "cancelled"
             r.finish_reason = FINISH_CANCELLED
             r.finish_mono = now

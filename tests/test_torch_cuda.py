@@ -836,3 +836,125 @@ def test_cuda_artifact_loads_saved_bits(cuda_device, tmp_path, quant):
         assert torch.equal(b.cpu(), h), p
         if quant == "none":
             assert torch.equal(a, b), p
+
+
+def _small_serving_cfgs():
+    """A dense and a hashed 1/8 reduced model, bf16, head_dim 64 (the
+    attention kernels compile 64/128/256): one pool geometry."""
+    import repro_torch.configs as C
+    base = C.reduced(C.get("qwen3-1.7b")).with_(head_dim=64,
+                                                hash_panel_cols=32)
+    return base, base.hashed_variant(0.125)
+
+
+def _serving_work(vocab, n=8):
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(11)
+    work = []
+    for uid in range(n):
+        pr = rng.integers(2, vocab, size=int(rng.integers(3, 40)))
+        sp = SamplingParams(temperature=0.8, top_k=20, seed=uid,
+                            max_tokens=6) if uid % 3 == 1 \
+            else SamplingParams(max_tokens=6)
+        work.append((("dense", "hashed")[uid % 2], pr.astype(np.int32), sp))
+    return work
+
+
+@pytest.mark.cuda
+def test_cuda_multi_model_tokens_equal_dedicated_engines(cuda_device):
+    """Two tenants on one shared pool on the card give each dedicated
+    engine's tokens, through the serving kernels and no plain version."""
+    from repro_torch import kernels as K
+    from repro_torch.models import build
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.multi_model import MultiModelEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    packs = {}
+    for tag, cfg in zip(("dense", "hashed"), _small_serving_cfgs()):
+        m = build(cfg, device="cuda")
+        packs[tag] = (m, m.init(0))
+    knobs = dict(slots=3, max_len=64, eos_id=-1, prefix_cache=True,
+                 prefill_chunk=16)
+    work = _serving_work(packs["dense"][0].cfg.vocab_size)
+    mm = MultiModelEngine(page_size=8, device="cuda",
+                          scheduler=SchedulerConfig(max_queue=16))
+    for tag, (m, p) in packs.items():
+        mm.add_model(tag, m, p, **knobs)
+    for uid, (tag, pr, sp) in enumerate(work):
+        assert mm.submit(Request(uid=uid, prompt=pr, sampling=sp), model=tag)
+    K.reset_counts()
+    got = {r.uid: r.tokens for r in mm.run()}
+    counts = K.counts()
+    for tag in packs:
+        mm[tag].kv.leak_check()
+    want = {}
+    for tag, (m, p) in packs.items():
+        eng = Engine(m, p, device="cuda", page_size=8,
+                     scheduler=SchedulerConfig(max_queue=16), **knobs)
+        for uid, (t, pr, sp) in enumerate(work):
+            if t == tag:
+                eng.submit(Request(uid=uid, prompt=pr, sampling=sp))
+        want.update({r.uid: r.tokens for r in eng.run()})
+    assert got == want
+    for name in ("hashed_matmul", "paged_decode", "paged_prefill",
+                 "topk_mask"):
+        assert counts[name]["launches"] > 0, name
+    assert all(c["plain_cuda_calls"] == 0 for c in counts.values())
+
+
+@pytest.mark.cuda
+def test_cuda_tick_on_an_executor_thread_gives_the_main_threads_bits(
+        cuda_device):
+    """Every tick's logits through ``run_in_executor`` are bitwise the
+    main thread's, with no graph, and the kernels launched from there."""
+    import asyncio
+    import threading
+    from repro_torch import kernels as K
+    from repro_torch.models import build
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = _small_serving_cfgs()[1]
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    work = [w for w in _serving_work(cfg.vocab_size, 6)]
+
+    def make():
+        eng = Engine(model, params, device="cuda", max_concurrency=3,
+                     max_len=64, eos_id=-1, page_size=8)
+        for uid, (_, pr, sp) in enumerate(work):
+            eng.submit(Request(uid=uid, prompt=pr, sampling=sp))
+        seen = []
+        orig = eng._sampler.run
+
+        def run(logits, sl, kind):
+            seen.append((logits.detach().clone(), logits.requires_grad,
+                         threading.current_thread().name))
+            return orig(logits, sl, kind)
+        eng._sampler.run = run
+        return eng, seen
+
+    main_eng, main_seen = make()
+    main_eng.run()
+
+    async def off_loop():
+        eng, seen = make()
+        loop = asyncio.get_running_loop()
+        while eng.pending():
+            await loop.run_in_executor(None, eng.step)
+        return eng, seen
+
+    K.reset_counts()
+    thr_eng, thr_seen = asyncio.run(asyncio.wait_for(off_loop(), 120))
+    counts = K.counts()
+    assert len(main_seen) == len(thr_seen) > 6
+    assert threading.main_thread().name not in {s[2] for s in thr_seen}
+    for (a, g1, _), (b, g2, _) in zip(main_seen, thr_seen):
+        assert not g1 and not g2
+        assert torch.equal(a, b)
+    assert {r.uid: r.tokens for r in main_eng._done} == \
+        {r.uid: r.tokens for r in thr_eng._done}
+    for name in ("hashed_matmul", "paged_decode", "paged_prefill",
+                 "topk_mask"):
+        assert counts[name]["launches"] > 0, name
+    assert all(c["plain_cuda_calls"] == 0 for c in counts.values())

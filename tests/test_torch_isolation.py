@@ -11,8 +11,10 @@
   hashed MLP, export a bf16 model as an int8 and an fp8 ``.hnart``
   artifact, register it and cold-start a speculative engine from the
   registry with a 1/16 draft (its tokens equal the non-speculative
-  engine's), list the registry through ``registry_cli``, and check that
-  nothing of ``repro`` was imported.
+  engine's), list the registry through ``registry_cli``, import the HTTP
+  front end and its launcher and serve a dense and a hashed tenant on one
+  shared pool through ``MultiModelEngine``, and check that nothing of
+  ``repro`` was imported.
 - An AST scan of ``src/repro_torch/**``, ``chip_smoke.py`` and
   ``gemm_timing.py``: no JAX import, no ``ml_dtypes`` (the card's machine
   has none) and no import of the JAX package.
@@ -104,6 +106,19 @@ with tempfile.TemporaryDirectory() as d:
         toks.append([r.tokens for r in eng.run()])
     assert toks[0] == toks[1], toks
     assert registry_cli.main(["--registry", d + "/reg", "verify"]) == 0
+import repro_torch.serving.http  # noqa: F401
+from repro_torch.serving.http import client  # noqa: F401
+from repro_torch.launch import serve_http  # noqa: F401
+from repro_torch.serving.multi_model import MultiModelEngine
+mm = MultiModelEngine(page_size=8, device="cpu")
+dcfg = C.reduced(C.get("qwen3-1.7b"))
+for tag, c in (("dense", dcfg), ("hashed", cfg)):
+    m = build(c, device="cpu")
+    mm.add_model(tag, m, m.init(0), slots=1, max_len=32, eos_id=-1)
+for uid, tag in enumerate(("dense", "hashed")):
+    assert mm.submit(Request(uid=uid, prompt=np.arange(5, dtype=np.int32)
+                             + 2, max_new_tokens=3), model=tag)
+assert sorted(len(r.tokens) for r in mm.run()) == [3, 3]
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.") or m == "jax"
                   or m.startswith("jax.") or m.startswith("jaxlib")
@@ -169,6 +184,14 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         Engine(model, model.init(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-1.7b", "--reduced"])
+    from repro_torch.launch import serve_http
+    from repro_torch.serving.multi_model import MultiModelEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiModelEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http.main(["--arch", "qwen3-1.7b", "--reduced", "--self-test"])
+    with pytest.raises(ValueError, match="is on cuda, the engine on cpu"):
+        MultiModelEngine(device="cpu").add_model("x", _OnCuda(), {})
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
@@ -184,6 +207,11 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
                            device="cpu")
     assert params[0]["w"].device.type == "cpu"
     assert Engine(model, model.init(0), device="cpu").device.type == "cpu"
+
+
+class _OnCuda:
+    """Stands for a model on the card: only its device is read."""
+    device = torch.device("cuda")
 
 
 def test_cpu_tensors_never_reach_a_kernel_launch():
